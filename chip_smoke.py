@@ -1,0 +1,415 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``topfusion_tpu_torch``) on one
+NVIDIA GPU: the quickest proof that the port still builds and runs there.
+
+    python3 chip_smoke.py            # one card, the bench configuration
+
+Phases, each of which must pass (else the exit code is 1):
+
+  1. banner: torch / CUDA / nvcc / triton versions, and the card's name
+     and power limit from nvidia-smi;
+  2. build the CUDA integrate kernel from ``topfusion_tpu_torch/csrc``;
+  3. kernel vs plain PyTorch integrate on the card, on the map after a
+     few frames of the bench orbit at the bench configuration (VGA,
+     5 mm voxels, 2^16-block map, 4096 visible blocks): the whole pool
+     must be bit-equal and num_visible equal, for int16, float32 and
+     bfloat16 pools; both are timed over REPEATS calls with CUDA events
+     (device time, and wall time with the host's launch cost), and the
+     kernel alone with the profiler (informational);
+  4. the main path: the 8-frame bench orbit through ``BlockPipeline`` with
+     the kernel, asserting every frame tracked, no reset, ATE < 12 mm,
+     one kernel launch per frame, and a bit-identical trajectory and pool
+     against the same run with the plain integrate;
+  5. frames/s over PASSES more passes of the orbit, then one profiled
+     pass: kernels and device time per frame, the device's busy share
+     and the kernels that take most device time (informational).
+
+The last lines are one JSON line of kernel results, the nvidia-smi name
+and power limit, and ``{"ok": true, "device": {...}}``.  Without CUDA,
+or without the package beside it, the script exits non-zero and prints
+no result.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+import traceback
+
+ATE_LIMIT_M = 0.012
+FRAMES = 8  # the bench orbit of bench.py:96
+PASSES = 6  # timed passes over the orbit, as bench.py:121-128
+REPEATS = 20  # timed calls per kernel-vs-plain measurement
+KERNEL_SOURCE = "topfusion_tpu_torch/csrc/integrate.cu"
+KERNEL_REPLACES = "topfusion_tpu/ops/pallas/integrate_kernel.py:242"
+
+
+def bench_config(pool_dtype: str = "int16"):
+    """The JAX package's ``bench.py:make_cfg``: 640x480 at the reference
+    intrinsics, 5 mm voxels, mu = 2 cm, 2^16 blocks, 4096 visible
+    blocks, occlusion-culled aged visible sets, splat K = 80, ICP
+    (10, 5, 4) with bilinear polish, the integrate kernel."""
+    from topfusion_tpu_torch.config import (
+        BlockMapConfig,
+        CameraConfig,
+        ICPConfig,
+        PipelineConfig,
+        RaycastConfig,
+        TSDFConfig,
+    )
+
+    return PipelineConfig(
+        camera=CameraConfig(),
+        icp=ICPConfig(iters=(10, 5, 4)),
+        tsdf=TSDFConfig(voxel_size=0.005, trunc_dist=0.02),
+        blockmap=BlockMapConfig(
+            max_visible_blocks=1 << 12,
+            pool_dtype=pool_dtype,
+            use_pallas_integrate=True,
+            visible_occlusion_cull=True,
+        ),
+        raycast=RaycastConfig(max_steps=192, surfels_per_block=80),
+    )
+
+
+def with_plain_integrate(cfg):
+    return dataclasses.replace(
+        cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=False)
+    )
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise AssertionError(msg)
+
+
+def banner() -> str:
+    import torch
+
+    from topfusion_tpu_torch.ops.cuda.build import find_nvcc
+    from topfusion_tpu_torch.utils.device_info import device_banner, nvidia_smi_name_power
+
+    print(device_banner())
+    nvcc = find_nvcc()
+    out = subprocess.run([nvcc, "--version"], capture_output=True, text=True).stdout
+    print(f"nvcc: {nvcc}: {out.strip().splitlines()[-1] if out.strip() else '?'}")
+    try:
+        import triton
+
+        print(f"triton {triton.__version__} imports")
+    except ImportError as e:
+        print(f"triton does not import: {e}")
+    print(f"python {sys.version.split()[0]}, torch {torch.__version__}")
+    return nvidia_smi_name_power()
+
+
+def build_kernel() -> None:
+    from topfusion_tpu_torch.ops.cuda.build import library_path, load_library
+
+    t0 = time.perf_counter()
+    load_library("integrate")
+    secs = time.perf_counter() - t0
+    print(f"build: integrate kernel ready in {secs:.2f} s")
+    log = library_path("integrate").with_suffix(".log")
+    if log.exists():
+        print(log.read_text().strip())
+
+
+def render_frames(cfg, poses, device):
+    import torch
+
+    from topfusion_tpu_torch.io.synthetic import SyntheticScene
+
+    scene = SyntheticScene()
+    return [
+        scene.render_depth_mm(cfg.camera, torch.as_tensor(T, dtype=torch.float32, device=device))
+        for T in poses
+    ]
+
+
+def run(pipe, state, frames):
+    """Step every frame; returns (state, [T_wc], [aux])."""
+    poses, auxes = [], []
+    for f in frames:
+        state, aux = pipe.step(state, f)
+        poses.append(state.T_wc)
+        auxes.append(aux)
+    return state, poses, auxes
+
+
+def time_calls(fn, repeats: int) -> dict:
+    """Times of ``fn()`` per call, median over ``repeats`` calls, each after
+    the L2 cache was flushed (a 256 MiB random fill, outside the timed span).
+
+    ``wall_ms``: between CUDA events around the call on an idle device, so
+    the host's launch cost is in it.  ``device_ms``: the same events, but
+    with the device held busy (``torch.cuda._sleep``) until the host has
+    enqueued the whole call, so the span is the device's work alone.  A
+    call whose first event the device reached before the host was done is
+    taken again with a longer hold."""
+    import torch
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+
+    def span(hold_cycles: int) -> tuple[float, bool]:
+        flush.uniform_()
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        late = a.query()  # the device got to ``a`` before the call was enqueued
+        b.synchronize()
+        return a.elapsed_time(b), late
+
+    walls = [span(0)[0] for _ in range(repeats)]
+    devices = []
+    hold = 1 << 24  # ~8 ms at the card's clock
+    while len(devices) < repeats:
+        ms, late = span(hold)
+        if late:
+            check(hold < 1 << 31, "the host cannot enqueue one call within a 1 s hold")
+            hold *= 2
+            continue
+        devices.append(ms)
+    return {"wall_ms": statistics.median(walls), "device_ms": statistics.median(devices)}
+
+
+def kernel_event_ms(fn, repeats: int, kernel_name: str) -> float | None:
+    """Median device time of the kernels whose name holds ``kernel_name``
+    over ``repeats`` L2-flushed calls, as the profiler records them; None
+    if it records none (informational only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(repeats):
+            flush.uniform_()
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
+    return statistics.median(us) / 1000.0 if us else None
+
+
+def kernel_vs_plain(frames, poses, device) -> dict:
+    """Phase 3.  Returns the int16 result (the bench's pool dtype)."""
+    import torch
+
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+    from topfusion_tpu_torch.ops.blockmap import decode_tsdf
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.depth import depth_to_meters
+    from topfusion_tpu_torch.ops.tsdf_block import (
+        allocate_from_depth,
+        integrate_blocks,
+        visible_blocks,
+    )
+
+    results = {}
+    for dtype in ("int16", "float32", "bfloat16"):
+        cfg = with_plain_integrate(bench_config(dtype))
+        pipe = BlockPipeline(cfg, device)
+        state, _, _ = run(pipe, pipe.init(), frames[:3])
+        cam, tc, bm = cfg.camera, cfg.tsdf, cfg.blockmap
+        T = torch.as_tensor(poses[3], dtype=torch.float32, device=device)
+        raw = depth_to_meters(frames[3], cfg.preproc.max_sensor_depth)
+        m, _ = allocate_from_depth(state.block_map(), cam, tc, bm, T, raw)
+        vis = visible_blocks(m, cam, tc, bm, T, depth=raw)
+
+        def fresh():
+            return m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone())
+
+        mk, nk = integrate_blocks_cuda(fresh(), cam, tc, bm, T, raw, vis)
+        mp, np_ = integrate_blocks(fresh(), cam, tc, bm, T, raw, vis)
+        torch.cuda.synchronize()
+        n_vis = int(nk)
+        updated = int((mp.weight != m.weight).sum())
+        equal = torch.equal(mk.tsdf, mp.tsdf) and torch.equal(mk.weight, mp.weight)
+        err = float(torch.max(torch.abs(decode_tsdf(mk.tsdf) - decode_tsdf(mp.tsdf))))
+        werr = float(torch.max(torch.abs(mk.weight.float() - mp.weight.float())))
+        mt, mw = fresh(), fresh()
+        w_t = time_calls(lambda: integrate_blocks_cuda(mt, cam, tc, bm, T, raw, vis), REPEATS)
+        p_t = time_calls(lambda: integrate_blocks(mw, cam, tc, bm, T, raw, vis), REPEATS)
+        k_ms = kernel_event_ms(lambda: integrate_blocks_cuda(mt, cam, tc, bm, T, raw, vis),
+                               REPEATS, "integrate_kernel")
+        ms, plain_ms = w_t["device_ms"], p_t["device_ms"]
+        print(
+            f"integrate {dtype}: num_visible kernel {n_vis} plain {int(np_)}, "
+            f"{updated} voxels updated, pool bit-equal {equal}, "
+            f"max |tsdf diff| {err}, max |weight diff| {werr}"
+        )
+        print(
+            f"  device time per call (CUDA events, device held busy, L2 flushed, "
+            f"median of {REPEATS}): wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"wall per call (CUDA events, idle device, median): "
+            f"wrapper {w_t['wall_ms']:.4f} ms, plain {p_t['wall_ms']:.4f} ms; "
+            f"the kernel alone (profiler, median): "
+            + (f"{k_ms:.4f} ms" if k_ms is not None else "not measured")
+        )
+        check(n_vis == int(np_), f"{dtype}: num_visible differs")
+        check(n_vis > 1000 and updated > 0, f"{dtype}: trivial comparison")
+        check(equal, f"{dtype}: kernel and plain pools differ")
+        results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return results["int16"]
+
+
+def main_path(frames, poses, device) -> int:
+    """Phases 4 and 5.  Returns the kernel launches of the main-path run."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+    cfg = bench_config("int16")
+    pipe = BlockPipeline(cfg, device)
+    state0 = pipe.init()
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    state, est, auxes = run(pipe, state0, frames)
+    torch.cuda.synchronize()
+    launches = integrate_blocks_cuda.launches
+
+    est_np = [T.cpu().numpy() for T in est]
+    for i, a in enumerate(auxes):
+        print(
+            f"frame {i}: ok {bool(a.ok)} blocks {int(a.num_blocks)} "
+            f"allocated {int(a.blocks_allocated)} visible {int(a.num_visible)} "
+            f"inliers {int(a.num_inliers)} residual {float(a.residual):.6f} "
+            f"dropped {int(a.blocks_dropped)} visible_overflow {int(a.visible_overflow)}"
+        )
+    ate = ate_rmse(est_np, poses, align=False)
+    print(f"main path: {len(frames)} frames, ATE {ate * 1000:.3f} mm, "
+          f"resets {int(state.resets)}, kernel launches {launches}")
+    check(all(bool(a.ok) for a in auxes), "a frame failed to track")
+    check(int(state.resets) == 0, "the pipeline reset")
+    check(ate < ATE_LIMIT_M, f"ATE {ate} m >= {ATE_LIMIT_M} m")
+    check(launches == len(frames), f"{launches} kernel launches for {len(frames)} frames")
+    check(int(state.num_blocks) > 0, "no blocks allocated")
+    check(all(int(a.blocks_dropped) == 0 for a in auxes), "blocks dropped")
+    check(all(np.isfinite(T).all() for T in est_np), "non-finite pose")
+    check(all(bool(torch.isfinite(p).all()) for p in state.model_points), "non-finite model map")
+
+    plain = BlockPipeline(with_plain_integrate(cfg), device)
+    pstate, pest, _ = run(plain, plain.init(), frames)
+    same_poses = all(torch.equal(a, b) for a, b in zip(est, pest))
+    same_pool = torch.equal(state.tsdf, pstate.tsdf) and torch.equal(state.weight, pstate.weight)
+    print(f"plain-integrate run: poses bit-identical {same_poses}, pool bit-identical {same_pool}")
+    check(same_poses and same_pool, "kernel and plain runs differ")
+
+    # Phase 5: throughput (informational, not a benchmark).
+    state, _, _ = run(pipe, state, frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(PASSES):
+        state, _, _ = run(pipe, state, frames)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    print(f"throughput: {PASSES * len(frames) / dt:.2f} frames/s over {PASSES} passes "
+          f"of {len(frames)} frames ({dt * 1000 / (PASSES * len(frames)):.2f} ms/frame)")
+    profile_pass(pipe, state, frames)
+    return launches
+
+
+def profile_pass(pipe, state, frames) -> None:
+    """One pass over the frames under the profiler: device operations and
+    their summed device time per frame, the device's busy share of the
+    pass's wall time (which the profiler's own cost inflates), and the
+    five kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(frames)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(pipe, state, frames)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    us_by_name = collections.Counter()
+    ops = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us_by_name[e.name] += e.time_range.elapsed_us()
+            ops += 1
+    device_ms = sum(us_by_name.values()) / 1000
+    if device_ms == 0.0:
+        print("profiled pass: the profiler recorded no device time (not measured)")
+        return
+    print(f"profiled pass: {ops / n:.1f} device ops/frame, device time "
+          f"{device_ms / n:.3f} ms/frame, wall {wall_ms / n:.3f} ms/frame, "
+          f"device busy share {device_ms / wall_ms:.4f}")
+    for name, us in us_by_name.most_common(5):
+        print(f"  {us / 1000 / n:8.3f} ms/frame  {name[:100]}")
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError as e:
+        print(f"chip_smoke: torch is missing: {e}", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs only on a GPU",
+              file=sys.stderr)
+        return 1
+    try:
+        import topfusion_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
+        return 1
+
+    from topfusion_tpu_torch.io.synthetic import orbit_trajectory
+
+    try:
+        smi = banner()
+        device = torch.device("cuda", 0)
+        build_kernel()
+        poses = orbit_trajectory(FRAMES, max_angle_deg=3.0, max_shift=0.03, seed=1)
+        cfg = bench_config()
+        t0 = time.perf_counter()
+        frames = render_frames(cfg, poses, device)
+        torch.cuda.synchronize()
+        print(f"rendered {len(frames)} frames {tuple(frames[0].shape)} "
+              f"{frames[0].dtype} in {time.perf_counter() - t0:.2f} s")
+        k = kernel_vs_plain(frames, poses, device)
+        launches = main_path(frames, poses, device)
+    except Exception:  # every phase failure ends the run with exit code 1
+        traceback.print_exc()
+        print("chip_smoke: FAILED", file=sys.stderr)
+        return 1
+
+    print(json.dumps({"kernels": [{
+        "name": "integrate_blocks",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": KERNEL_REPLACES,
+        "launches": launches,
+        "max_abs_err": k["max_abs_err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+    }]}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,162 @@
+"""The integrate step: the port's plain ``integrate_blocks`` against the
+JAX package's XLA ``integrate_blocks`` and its Pallas kernel
+``integrate_blocks_pallas`` (interpret mode), over the whole pool
+including the sacrificial row; and the CUDA kernel wrapper's CPU path.
+
+The kernel itself runs only on a card: tests/test_torch_cuda.py (which
+imports no jax) holds it against the plain version to the bit.
+"""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tests.test_pipeline_block import make_cfg
+from topfusion_tpu.io.synthetic import SyntheticScene, orbit_trajectory
+from topfusion_tpu.models.block_pipeline import BlockPipeline as JaxPipeline
+from topfusion_tpu.ops import blockmap as jbm
+from topfusion_tpu.ops import tsdf_block as jtb
+from topfusion_tpu.ops.depth import depth_to_meters as j_depth_to_meters
+from topfusion_tpu.ops.pallas.integrate_kernel import integrate_blocks_pallas
+from topfusion_tpu_torch.convert import config_from_reference
+from topfusion_tpu_torch.ops import blockmap as tbm
+from topfusion_tpu_torch.ops import tsdf_block as ttb
+from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+torch.set_num_threads(2)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module")
+def seq():
+    """JAX map (float32 pool) after 3 frames, the 4th frame's metric depth
+    and pose, and its full-scan visible set."""
+    cfg = make_cfg()
+    scene = SyntheticScene()
+    poses = orbit_trajectory(4, max_angle_deg=4.0, max_shift=0.04, seed=3)
+    frames = [np.asarray(scene.render_depth_mm(cfg.camera, jnp.asarray(T, jnp.float32)))
+              for T in poses]
+    pipe = JaxPipeline(cfg)
+    state = pipe.init()
+    for f in frames[:3]:
+        state, _ = pipe.step(state, jnp.asarray(f))
+    m = state.block_map()
+    T = np.asarray(poses[3], np.float32)
+    raw = np.asarray(j_depth_to_meters(jnp.asarray(frames[3])))
+    vis = tuple(np.asarray(v) for v in jtb.visible_blocks(
+        m, cfg.camera, cfg.tsdf, cfg.blockmap, jnp.asarray(T)))
+    pool = {f: np.asarray(getattr(m, f)) for f in jbm.BlockMap._fields}
+    return cfg, pool, raw, T, vis
+
+
+def make_case(seq, dtype, stop_at_max):
+    """(jax cfg, port cfg, jax map, numpy pool fields) for a pool dtype
+    and weight rule; max_weight 2 makes the weight clamp and the
+    stop-at-max gate bite after 3 frames."""
+    cfg, pool, raw, T, vis = seq
+    cfg = dataclasses.replace(
+        cfg,
+        tsdf=dataclasses.replace(cfg.tsdf, max_weight=2.0,
+                                 stop_integrating_at_max_weight=stop_at_max),
+        blockmap=dataclasses.replace(cfg.blockmap, pool_dtype=dtype),
+    )
+    pool = dict(pool)
+    jd = jnp.dtype(dtype)
+    pool["tsdf"] = np.asarray(jbm.encode_tsdf(jnp.asarray(pool["tsdf"]), jd))
+    pool["weight"] = np.asarray(jbm.encode_weight(jnp.minimum(jnp.asarray(pool["weight"]), 2.0), jd))
+    mj = jbm.BlockMap(*[jnp.asarray(pool[f]) for f in jbm.BlockMap._fields])
+    return cfg, config_from_reference(cfg), mj, pool
+
+
+def port_map(pool):
+    return tbm.BlockMap(*[t(pool[f]) for f in tbm.BlockMap._fields])
+
+
+CASES = [(d, s) for d in ("int16", "float32") for s in (False, True)]
+
+
+@pytest.mark.parametrize("dtype,stop_at_max", CASES)
+@pytest.mark.parametrize("reference", ["xla", "pallas_interpret"])
+def test_integrate_matches_jax(seq, dtype, stop_at_max, reference):
+    """The whole pool is bit-equal on the CPU, tighter than the one int16
+    quantum (float32: 1e-6) the port allows: both packages evaluate the
+    same float32 expressions in the same order, and XLA's CPU backend
+    does not contract the fusion rule's multiply-add here."""
+    _, _, raw, T, vis = seq
+    jc, tc, mj, pool = make_case(seq, dtype, stop_at_max)
+    if reference == "xla":
+        out_j, n_j = jtb.integrate_blocks(mj, jc.camera, jc.tsdf, jc.blockmap,
+                                          jnp.asarray(T), jnp.asarray(raw),
+                                          tuple(jnp.asarray(v) for v in vis))
+    else:
+        out_j, n_j = integrate_blocks_pallas(mj, jc.camera, jc.tsdf, jc.blockmap,
+                                             jnp.asarray(T), jnp.asarray(raw),
+                                             tuple(jnp.asarray(v) for v in vis),
+                                             interpret=True)
+    mt = port_map(pool)
+    out_t, n_t = ttb.integrate_blocks(mt, tc.camera, tc.tsdf, tc.blockmap,
+                                      t(T), t(raw), tuple(t(v) for v in vis))
+    assert int(n_t) == int(n_j) > 100
+    w_j, w_t = np.asarray(out_j.weight), out_t.weight.numpy()
+    np.testing.assert_array_equal(w_t, w_j)
+    updated = int((w_j != pool["weight"]).sum())
+    assert updated > 1000
+    np.testing.assert_array_equal(out_t.tsdf.numpy(), np.asarray(out_j.tsdf))
+    if stop_at_max:
+        full = pool["weight"] >= 2
+        np.testing.assert_array_equal(out_t.tsdf.numpy()[full], pool["tsdf"][full])
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32", "bfloat16"])
+def test_integrate_in_place_and_untouched_rows(seq, dtype):
+    """The plain path writes the pool in place, touches only visible rows,
+    and leaves the sacrificial row as it was."""
+    cfg, pool, raw, T, vis = seq
+    jc, tc, _, _ = make_case(seq, "float32", False)
+    mt = tbm.make_block_map(tc.blockmap, dtype=tbm.pool_dtype(dtype))
+    src = port_map(pool)
+    mt = mt._replace(**{f: getattr(src, f) for f in ("bucket_keys", "bucket_slots",
+                                                      "block_coords", "num_blocks")})
+    mt = mt._replace(tsdf=tbm.encode_tsdf(tbm.decode_tsdf(src.tsdf), mt.tsdf.dtype),
+                     weight=tbm.encode_weight(src.weight.clamp(max=2), mt.weight.dtype))
+    before_t, before_w = mt.tsdf.clone(), mt.weight.clone()
+    out, n = ttb.integrate_blocks(mt, tc.camera, tc.tsdf, tc.blockmap, t(T), t(raw),
+                                  tuple(t(v) for v in vis))
+    assert out.tsdf.data_ptr() == mt.tsdf.data_ptr()
+    changed_rows = torch.nonzero((out.weight != before_w).flatten(1).any(1)).flatten()
+    slots, _, mask = vis
+    assert set(changed_rows.tolist()) <= set(slots[mask].tolist())
+    cap = mt.capacity
+    assert torch.equal(out.tsdf[cap], before_t[cap]) and torch.equal(out.weight[cap], before_w[cap])
+
+    # Nothing visible: the pool is bit-identical.
+    T_far = T.copy()
+    T_far[0, 3] += 50.0
+    vis_far = ttb.visible_blocks(out, tc.camera, tc.tsdf, tc.blockmap, t(T_far))
+    assert not bool(vis_far[2].any())
+    snap_t, snap_w = out.tsdf.clone(), out.weight.clone()
+    _, n_far = ttb.integrate_blocks(out, tc.camera, tc.tsdf, tc.blockmap, t(T_far), t(raw), vis_far)
+    assert int(n_far) == 0
+    assert torch.equal(out.tsdf, snap_t) and torch.equal(out.weight, snap_w)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_wrapper_runs_plain_on_cpu(seq, dtype):
+    """On CPU tensors the kernel wrapper is the plain version, and it
+    launches nothing."""
+    _, _, raw, T, vis = seq
+    _, tc, _, pool = make_case(seq, dtype, False)
+    a, na = ttb.integrate_blocks(port_map(pool), tc.camera, tc.tsdf, tc.blockmap,
+                                 t(T), t(raw), tuple(t(v) for v in vis))
+    before = integrate_blocks_cuda.launches
+    b, nb = integrate_blocks_cuda(port_map(pool), tc.camera, tc.tsdf, tc.blockmap,
+                                  t(T), t(raw), tuple(t(v) for v in vis))
+    assert integrate_blocks_cuda.launches == before
+    assert int(na) == int(nb)
+    assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.weight, b.weight)

@@ -1,0 +1,292 @@
+"""Projective point-to-plane ICP, frame-to-model (port of
+``topfusion_tpu/ops/icp.py``).
+
+Each gated correspondence contributes a row ``[J | r]`` (7 floats) and
+the system is one Gram matmul ``G = rows^T rows`` (``torch.matmul`` with
+TF32 off, as XLA computed it outside any kernel); the 6x6 damped solve
+stays on the device (``torch.linalg.solve_ex``, no error-check sync), so
+the coarse-to-fine schedule runs without a host sync.  The one sync per
+call is ``torch.linalg.eigvalsh`` for ``obs_ratio``, which on the card
+synchronizes to check its result.
+
+Gather modes: ``flat`` (the default; here a row gather of the
+concatenated 8-channel map, nearest or bilinear) and ``take`` (plain
+indexing, the semantic reference).  ``onehot`` is not ported: it exists
+only because the TPU has no hardware gather (ops/gather_mm.py in the
+JAX package); the GPU gathers natively.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+
+from ..config import CameraConfig, ICPConfig
+from ..geometry.camera import project
+from ..geometry.se3 import (
+    rotate_vectors,
+    se3_exp,
+    se3_inverse,
+    transform_points,
+)
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+class ICPResult(NamedTuple):
+    T_wc: torch.Tensor          # (4, 4) estimated camera-to-world pose
+    ok: torch.Tensor            # () bool — tracking success
+    residual: torch.Tensor      # () mean |r| over inliers at final iter
+    num_inliers: torch.Tensor   # () int32 at final iter
+    # () f32 observability: lambda_min / lambda_max of the final
+    # (undamped) 6x6 JtJ.
+    obs_ratio: torch.Tensor
+
+
+def _any_nonzero(x: torch.Tensor) -> torch.Tensor:
+    return torch.any(x != 0.0, dim=-1)
+
+
+def _bilinear_quad(uf, vf, h, w, gather):
+    """Corners (g00, g01, g10, g11) of the quad at (uf, vf), clamped to
+    the image, with the fractional weights (fu, fv) [..., 1]."""
+    u0 = torch.clamp(torch.floor(uf).to(torch.int32), 0, w - 2)
+    v0 = torch.clamp(torch.floor(vf).to(torch.int32), 0, h - 2)
+    fu = torch.clamp(uf - u0.to(uf.dtype), 0.0, 1.0)[..., None]
+    fv = torch.clamp(vf - v0.to(vf.dtype), 0.0, 1.0)[..., None]
+    return gather(u0, v0), fu, fv
+
+
+def _lerp(g00, g01, g10, g11, fu, fv):
+    return (
+        g00 * (1 - fu) * (1 - fv)
+        + g01 * fu * (1 - fv)
+        + g10 * (1 - fu) * fv
+        + g11 * fu * fv
+    )
+
+
+def _normalized(nq_w):
+    nq_norm = torch.linalg.vector_norm(nq_w, dim=-1, keepdim=True)
+    return nq_w / torch.clamp(nq_norm, min=1e-12), nq_norm[..., 0]
+
+
+def build_normal_equations(
+    cam: CameraConfig,
+    T_est: torch.Tensor,
+    T_model: torch.Tensor,
+    curr_points: torch.Tensor,
+    curr_normals: torch.Tensor,
+    model_points: torch.Tensor,
+    model_normals: torch.Tensor,
+    dist_thresh: float,
+    angle_cos_thresh: float,
+    bilinear: bool = False,
+    gather_mode: str = "take",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One projective-association pass -> 7x7 Gram matrix + inlier count.
+
+    ``G[:6, :6] = JtJ``, ``G[:6, 6] = Jtr``, ``G[6, 6] = r^T r``.
+    """
+    if gather_mode not in ("flat", "take"):
+        raise NotImplementedError(
+            f"gather_mode={gather_mode!r}: the onehot MXU gather exists only "
+            "because the TPU has no hardware gather; the GPU port has "
+            "'flat' and 'take'"
+        )
+    h, w = model_points.shape[:2]
+    curr_valid = _any_nonzero(curr_points)
+
+    p_w = transform_points(T_est, curr_points)
+    n_w = rotate_vectors(T_est, curr_normals)
+
+    p_model_cam = transform_points(se3_inverse(T_model), p_w)
+    uv, z = project(cam, p_model_cam)
+    uf, vf = uv[..., 0], uv[..., 1]
+    in_bounds = (uf >= 0.0) & (uf <= w - 1.0) & (vf >= 0.0) & (vf <= h - 1.0) & (z > 0.0)
+
+    if gather_mode == "flat":
+        # Points and normals as one [h*w, 6] table gathered by rows (the JAX
+        # package pads rows to 8 channels for the TPU's layout).
+        cat = torch.cat([model_points, model_normals], dim=-1).reshape(h * w, 6)
+
+    if gather_mode == "flat" and bilinear:
+        # One row gather of all four corners; quad usable only if all four
+        # corners are valid, else the nearest corner of the quad.
+        def gather(u0, v0):
+            base = (v0 * w + u0).long()
+            quad = cat[torch.stack([base, base + 1, base + w, base + w + 1], dim=-1)]
+            return [quad[..., i, :] for i in range(4)]
+
+        (g00, g01, g10, g11), fu, fv = _bilinear_quad(uf, vf, h, w, gather)
+        all_valid = (
+            _any_nonzero(g00[..., :3]) & _any_nonzero(g01[..., :3])
+            & _any_nonzero(g10[..., :3]) & _any_nonzero(g11[..., :3])
+        )
+        lerped = _lerp(g00, g01, g10, g11, fu, fv)
+        right = (fu[..., 0] > 0.5)[..., None]
+        down = (fv[..., 0] > 0.5)[..., None]
+        near = torch.where(
+            down, torch.where(right, g11, g10), torch.where(right, g01, g00)
+        )
+        gathered = torch.where(all_valid[..., None], lerped, near)
+        q_w = gathered[..., :3]
+        nq_w, nq_norm = _normalized(gathered[..., 3:6])
+        model_valid = _any_nonzero(q_w) & (nq_norm > 1e-6)
+    elif bilinear:
+        def gather(u0, v0):
+            u0, v0 = u0.long(), v0.long()
+            return [(mp[v0, u0], mp[v0, u0 + 1], mp[v0 + 1, u0], mp[v0 + 1, u0 + 1])
+                    for mp in (model_points, model_normals)]
+
+        ((q00, q01, q10, q11), (n00, n01, n10, n11)), fu, fv = _bilinear_quad(
+            uf, vf, h, w, gather
+        )
+        all_valid = (
+            _any_nonzero(q00) & _any_nonzero(q01)
+            & _any_nonzero(q10) & _any_nonzero(q11)
+        )
+        un = torch.clamp(torch.round(uf).to(torch.int32), 0, w - 1).long()
+        vn = torch.clamp(torch.round(vf).to(torch.int32), 0, h - 1).long()
+        q_w = torch.where(all_valid[..., None],
+                          _lerp(q00, q01, q10, q11, fu, fv), model_points[vn, un])
+        nq_w = torch.where(all_valid[..., None],
+                           _lerp(n00, n01, n10, n11, fu, fv), model_normals[vn, un])
+        nq_w, nq_norm = _normalized(nq_w)
+        model_valid = _any_nonzero(q_w) & (nq_norm > 1e-6)
+    else:
+        un = torch.clamp(torch.round(uf).to(torch.int32), 0, w - 1).long()
+        vn = torch.clamp(torch.round(vf).to(torch.int32), 0, h - 1).long()
+        if gather_mode == "flat":
+            gathered = cat[vn * w + un]
+            q_w = gathered[..., :3]
+            nq_w = gathered[..., 3:6]
+        else:
+            q_w = model_points[vn, un]
+            nq_w = model_normals[vn, un]
+        model_valid = _any_nonzero(q_w)
+
+    diff = p_w - q_w
+    dist2 = torch.sum(diff * diff, dim=-1)
+    angle_cos = torch.sum(nq_w * n_w, dim=-1)
+
+    mask = (
+        curr_valid
+        & in_bounds
+        & model_valid
+        & (dist2 <= dist_thresh * dist_thresh)
+        & (angle_cos >= angle_cos_thresh)
+    )
+
+    r = torch.sum(nq_w * diff, dim=-1)
+    j_omega = torch.linalg.cross(p_w, nq_w, dim=-1)
+    rows = torch.cat([j_omega, nq_w, r[..., None]], dim=-1)
+    rows = torch.where(mask[..., None], rows, 0.0).reshape(-1, 7)
+
+    G = rows.T @ rows
+    count = torch.sum(mask, dtype=torch.int32)
+    return G, count
+
+
+def _solve_increment(
+    G: torch.Tensor,
+    count: torch.Tensor,
+    cfg: ICPConfig,
+    min_corresp: int | None = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """6x6 damped solve -> (twist xi, ok flag), without a host sync."""
+    A = G[:6, :6]
+    b = -G[:6, 6]
+    eye = torch.eye(6, dtype=G.dtype, device=G.device)
+    A_damped = A + cfg.damping * torch.diag(torch.diag(A)) + 1e-12 * eye
+    det = torch.linalg.det(A_damped)
+    xi, info = torch.linalg.solve_ex(A_damped, b)
+    finite = torch.all(torch.isfinite(xi)) & (info == 0)
+    ok = (
+        (torch.abs(det) > cfg.min_det)
+        & (count >= (cfg.min_corresp if min_corresp is None else min_corresp))
+        & finite
+    )
+    xi = torch.where(ok & finite, xi, 0.0)
+    return xi, ok
+
+
+def icp_track(
+    cam0: CameraConfig,
+    cfg: ICPConfig,
+    T_init: torch.Tensor,
+    T_model: torch.Tensor,
+    curr_points_pyr: List[torch.Tensor],
+    curr_normals_pyr: List[torch.Tensor],
+    model_points_pyr: List[torch.Tensor],
+    model_normals_pyr: List[torch.Tensor],
+) -> ICPResult:
+    """Coarse-to-fine frame-to-model tracking: levels coarsest first with
+    ``cfg.iters[level]`` iterations each; the last
+    ``bilinear_polish_iters`` of the finest level associate bilinearly
+    on rows subsampled by a further ``polish_stride``."""
+    dev = T_init.device
+    T_est = T_init
+    ok_all = torch.ones((), dtype=torch.bool, device=dev)
+    residual = torch.zeros((), dtype=torch.float32, device=dev)
+    inliers = torch.zeros((), dtype=torch.int32, device=dev)
+    G_last = torch.zeros((7, 7), dtype=torch.float32, device=dev)
+
+    n_levels = len(curr_points_pyr)
+    for level in range(n_levels - 1, -1, -1):
+        iters = cfg.iters[level] if level < len(cfg.iters) else 0
+        if iters == 0:
+            continue
+        cam_l = cam0.at_level(level)
+        cp, cn = curr_points_pyr[level], curr_normals_pyr[level]
+        mp, mn = model_points_pyr[level], model_normals_pyr[level]
+        if level == 0 and cfg.level0_stride > 1:
+            st = cfg.level0_stride
+            cp, cn = cp[::st, ::st], cn[::st, ::st]
+
+        def step(carry, bilinear_l):
+            T = carry[0]
+            G, count = build_normal_equations(
+                cam_l, T, T_model, cp, cn, mp, mn,
+                cfg.dist_threshold, cfg.angle_threshold_cos,
+                bilinear=bilinear_l, gather_mode=cfg.gather_mode,
+            )
+            xi, step_ok = _solve_increment(
+                G, count, cfg, min_corresp=max(8, cfg.min_corresp // 4 ** level)
+            )
+            T = torch.where(step_ok, se3_exp(xi) @ T, T)
+            res = torch.sqrt(G[6, 6] / torch.clamp(count, min=1).to(torch.float32))
+            # Tracking health is the LAST iteration's gate (a rejected step
+            # freezes the pose and later iterations may recover).
+            return T, step_ok, res, count, G
+
+        polish = (
+            min(cfg.bilinear_polish_iters, iters)
+            if (level == 0 and not cfg.bilinear)
+            else 0
+        )
+        carry = (T_est, ok_all, residual, inliers, G_last)
+        for _ in range(iters - polish):
+            carry = step(carry, cfg.bilinear)
+        if polish:
+            ps = cfg.polish_stride
+            # Subsample further only while the system keeps plenty of rows.
+            if ps > 1 and (cp.shape[0] // ps) * (cp.shape[1] // ps) >= 4096:
+                cp, cn = cp[::ps, ::ps], cn[::ps, ::ps]
+            else:
+                ps = 1
+            for _ in range(polish):
+                carry = step(carry, True)
+            T, ok, res, cnt, G = carry
+            # Inliers reported at pre-polish row density.
+            carry = (T, ok, res, cnt * (ps * ps), G)
+        T_est, ok_all, residual, inliers, G_last = carry
+
+    eig = torch.linalg.eigvalsh(G_last[:6, :6])
+    obs_ratio = torch.clamp(eig[0], min=0.0) / torch.clamp(eig[5], min=1e-20)
+    return ICPResult(
+        T_wc=T_est, ok=ok_all, residual=residual, num_inliers=inliers,
+        obs_ratio=obs_ratio,
+    )
