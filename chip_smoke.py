@@ -8,18 +8,24 @@ Phases, each of which must pass (else the exit code is 1):
 
   1. banner: torch / CUDA / nvcc / triton versions, and the card's name
      and power limit from nvidia-smi;
-  2. build the CUDA integrate kernel from ``topfusion_tpu_torch/csrc``;
+  2. build the CUDA integrate kernels from ``topfusion_tpu_torch/csrc``
+     (the compiler's registers and spills are printed);
   3. kernel vs plain PyTorch integrate on the card, on the map after a
      few frames of the bench orbit at the bench configuration (VGA,
      5 mm voxels, 2^16-block map, 4096 visible blocks): the whole pool
      must be bit-equal and num_visible equal, for int16, float32 and
      bfloat16 pools; both are timed over REPEATS calls with CUDA events
-     (device time, and wall time with the host's launch cost), and the
-     kernel alone with the profiler (informational);
+     (device time, and wall time with the host's launch cost), L2 flushed
+     before each call and, for the wrapper, L2 warm as well; the kernel
+     alone is timed with the profiler, beside an empty kernel of the same
+     grid (the floor of a launch) and the kernel's bound on this card
+     (the bytes it must move over the memory rate, computed from this
+     run's counts); a map of 4^3 blocks goes once through the per-voxel
+     kernel and is held bit-equal too;
   4. the main path: the 8-frame bench orbit through ``BlockPipeline`` with
      the kernel, asserting every frame tracked, no reset, ATE < 12 mm,
-     one kernel launch per frame, and a bit-identical trajectory and pool
-     against the same run with the plain integrate;
+     one launch of the column kernel per frame, and a bit-identical
+     trajectory and pool against the same run with the plain integrate;
   5. frames/s over PASSES more passes of the orbit, then one profiled
      pass: kernels and device time per frame, the device's busy share
      and the kernels that take most device time (informational).
@@ -47,6 +53,11 @@ PASSES = 6  # timed passes over the orbit, as bench.py:121-128
 REPEATS = 20  # timed calls per kernel-vs-plain measurement
 KERNEL_SOURCE = "topfusion_tpu_torch/csrc/integrate.cu"
 KERNEL_REPLACES = "topfusion_tpu/ops/pallas/integrate_kernel.py:242"
+# Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
+# rate, and float32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FP32_OPS_PER_S = 67e12
+INTEGRATE_OPS_PER_VOXEL = 40  # float operations per voxel of a live entry
 
 
 def bench_config(pool_dtype: str = "int16"):
@@ -114,7 +125,7 @@ def build_kernel() -> None:
     t0 = time.perf_counter()
     load_library("integrate")
     secs = time.perf_counter() - t0
-    print(f"build: integrate kernel ready in {secs:.2f} s")
+    print(f"build: integrate kernels ready in {secs:.2f} s")
     log = library_path("integrate").with_suffix(".log")
     if log.exists():
         print(log.read_text().strip())
@@ -142,9 +153,10 @@ def run(pipe, state, frames):
     return state, poses, auxes
 
 
-def time_calls(fn, repeats: int) -> dict:
+def time_calls(fn, repeats: int, flush_l2: bool = True) -> dict:
     """Times of ``fn()`` per call, median over ``repeats`` calls, each after
-    the L2 cache was flushed (a 256 MiB random fill, outside the timed span).
+    the L2 cache was flushed (a 256 MiB random fill, outside the timed span)
+    or, with ``flush_l2`` false, with whatever the call before left there.
 
     ``wall_ms``: between CUDA events around the call on an idle device, so
     the host's launch cost is in it.  ``device_ms``: the same events, but
@@ -159,7 +171,8 @@ def time_calls(fn, repeats: int) -> dict:
     torch.cuda.synchronize()
 
     def span(hold_cycles: int) -> tuple[float, bool]:
-        flush.uniform_()
+        if flush_l2:
+            flush.uniform_()
         if hold_cycles:
             torch.cuda._sleep(hold_cycles)
         a = torch.cuda.Event(enable_timing=True)
@@ -184,10 +197,11 @@ def time_calls(fn, repeats: int) -> dict:
     return {"wall_ms": statistics.median(walls), "device_ms": statistics.median(devices)}
 
 
-def kernel_event_ms(fn, repeats: int, kernel_name: str) -> float | None:
+def kernel_event_ms(fn, repeats: int, kernel_name: str, flush_l2: bool = True) -> float | None:
     """Median device time of the kernels whose name holds ``kernel_name``
-    over ``repeats`` L2-flushed calls, as the profiler records them; None
-    if it records none (informational only)."""
+    over ``repeats`` calls (L2 flushed before each unless ``flush_l2`` is
+    false), as the profiler records them; None if it records none
+    (informational only)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -195,12 +209,54 @@ def kernel_event_ms(fn, repeats: int, kernel_name: str) -> float | None:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(repeats):
-            flush.uniform_()
+            if flush_l2:
+                flush.uniform_()
             fn()
         torch.cuda.synchronize()
     us = [e.time_range.elapsed_us() for e in prof.events()
           if e.device_type == torch.autograd.DeviceType.CUDA and kernel_name in e.name]
     return statistics.median(us) / 1000.0 if us else None
+
+
+def integrate_bound(updated: int, live_voxels: int, elem_size: int, h: int, w: int,
+                    num_entries: int) -> dict:
+    """The least time the card could take for one integrate call: the
+    larger of the bytes it must move (each updated voxel's tsdf and weight
+    read once and written once, the depth image, the visible lists and the
+    pose read once) over the memory rate, and its float operations (every
+    voxel of a live entry is projected and gated) over the float32 rate."""
+    nbytes = updated * 4 * elem_size + h * w * 4 + num_entries * (4 + 12 + 1) + 64
+    ops = live_voxels * INTEGRATE_OPS_PER_VOXEL
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = ops / PEAK_FP32_OPS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bytes": nbytes, "bytes_ms": bytes_ms, "ops_ms": ops_ms}
+
+
+def empty_kernel_ms(grid: int, block: int) -> float | None:
+    """The profiler's median time of an empty kernel at ``grid`` x
+    ``block``: what a launch of that size costs the device by itself."""
+    import ctypes
+
+    import torch
+
+    from topfusion_tpu_torch.ops.cuda.build import load_library
+
+    fn = load_library("integrate").tf_launch_empty
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def launch():
+        err = fn(grid, block, torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"the empty kernel did not launch: CUDA error {err}")
+
+    launch()
+    return kernel_event_ms(launch, REPEATS, "empty_kernel", flush_l2=False)
+
+
+def fmt_ms(x: float | None) -> str:
+    return f"{x:.4f} ms" if x is not None else "not measured"
 
 
 def kernel_vs_plain(frames, poses, device) -> dict:
@@ -209,7 +265,7 @@ def kernel_vs_plain(frames, poses, device) -> dict:
 
     from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
     from topfusion_tpu_torch.ops.blockmap import decode_tsdf
-    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda, launch_plan
     from topfusion_tpu_torch.ops.depth import depth_to_meters
     from topfusion_tpu_torch.ops.tsdf_block import (
         allocate_from_depth,
@@ -231,38 +287,102 @@ def kernel_vs_plain(frames, poses, device) -> dict:
         def fresh():
             return m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone())
 
+        counts = (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
         mk, nk = integrate_blocks_cuda(fresh(), cam, tc, bm, T, raw, vis)
         mp, np_ = integrate_blocks(fresh(), cam, tc, bm, T, raw, vis)
         torch.cuda.synchronize()
+        check((integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
+              == (counts[0] + 1, counts[1] + 1), f"{dtype}: the column kernel was not launched")
         n_vis = int(nk)
         updated = int((mp.weight != m.weight).sum())
         equal = torch.equal(mk.tsdf, mp.tsdf) and torch.equal(mk.weight, mp.weight)
         err = float(torch.max(torch.abs(decode_tsdf(mk.tsdf) - decode_tsdf(mp.tsdf))))
         werr = float(torch.max(torch.abs(mk.weight.float() - mp.weight.float())))
         mt, mw = fresh(), fresh()
-        w_t = time_calls(lambda: integrate_blocks_cuda(mt, cam, tc, bm, T, raw, vis), REPEATS)
+
+        def wrapper():
+            integrate_blocks_cuda(mt, cam, tc, bm, T, raw, vis)
+
+        w_t = time_calls(wrapper, REPEATS)
         p_t = time_calls(lambda: integrate_blocks(mw, cam, tc, bm, T, raw, vis), REPEATS)
-        k_ms = kernel_event_ms(lambda: integrate_blocks_cuda(mt, cam, tc, bm, T, raw, vis),
-                               REPEATS, "integrate_kernel")
+        w_warm = time_calls(wrapper, REPEATS, flush_l2=False)
+        k_ms = kernel_event_ms(wrapper, REPEATS, "integrate_columns_kernel")
+        k_warm = kernel_event_ms(wrapper, REPEATS, "integrate_columns_kernel", flush_l2=False)
         ms, plain_ms = w_t["device_ms"], p_t["device_ms"]
+        h, w = raw.shape
+        V = int(vis[0].shape[0])
+        bound = integrate_bound(updated, n_vis * bm.block_size ** 3, m.tsdf.element_size(),
+                                h, w, V)
         print(
-            f"integrate {dtype}: num_visible kernel {n_vis} plain {int(np_)}, "
+            f"integrate {dtype}: num_visible kernel {n_vis} plain {int(np_)} of V = {V}, "
             f"{updated} voxels updated, pool bit-equal {equal}, "
             f"max |tsdf diff| {err}, max |weight diff| {werr}"
         )
         print(
             f"  device time per call (CUDA events, device held busy, L2 flushed, "
             f"median of {REPEATS}): wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms; "
+            f"wrapper with L2 warm {w_warm['device_ms']:.4f} ms; "
             f"wall per call (CUDA events, idle device, median): "
-            f"wrapper {w_t['wall_ms']:.4f} ms, plain {p_t['wall_ms']:.4f} ms; "
-            f"the kernel alone (profiler, median): "
-            + (f"{k_ms:.4f} ms" if k_ms is not None else "not measured")
+            f"wrapper {w_t['wall_ms']:.4f} ms, plain {p_t['wall_ms']:.4f} ms"
+        )
+        print(
+            f"  the kernel alone (profiler, median of {REPEATS}): L2 flushed {fmt_ms(k_ms)}, "
+            f"L2 warm {fmt_ms(k_warm)}; bound {bound['bound_ms']:.5f} ms by {bound['bound_by']} "
+            f"({bound['bytes']} B: {bound['bytes_ms']:.5f} ms at {PEAK_BYTES_PER_S / 1e12} TB/s; "
+            f"operations {bound['ops_ms']:.5f} ms at {PEAK_FP32_OPS_PER_S / 1e12} TFLOP/s)"
+            + (f"; bound / kernel = {bound['bound_ms'] / k_ms:.3f} flushed, "
+               f"{bound['bound_ms'] / k_warm:.3f} warm" if k_ms and k_warm else "")
         )
         check(n_vis == int(np_), f"{dtype}: num_visible differs")
         check(n_vis > 1000 and updated > 0, f"{dtype}: trivial comparison")
         check(equal, f"{dtype}: kernel and plain pools differ")
-        results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        results[dtype] = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                          "kernel_ms": k_ms, "bound_ms": bound["bound_ms"],
+                          "bound_by": bound["bound_by"]}
+    plan = launch_plan(V, bm.block_size)
+    print(f"an empty kernel at the integrate grid ({plan.grid} CTAs of {plan.block} threads), "
+          f"profiler, median of {REPEATS}: {fmt_ms(empty_kernel_ms(plan.grid, plan.block))}")
     return results["int16"]
+
+
+def generic_path_check(frames, poses, device) -> None:
+    """A map of 4^3 blocks at the bench configuration, allocated from the
+    first frame and integrated twice: the per-voxel kernel against the
+    plain version, bit-equal over the whole pool after each call."""
+    import torch
+
+    from topfusion_tpu_torch.ops.blockmap import make_block_map
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.depth import depth_to_meters
+    from topfusion_tpu_torch.ops.tsdf_block import (
+        allocate_from_depth,
+        integrate_blocks,
+        visible_blocks,
+    )
+
+    cfg = bench_config("int16")
+    cam, tc = cfg.camera, cfg.tsdf
+    bm = dataclasses.replace(cfg.blockmap, block_size=4)
+    T = torch.as_tensor(poses[0], dtype=torch.float32, device=device)
+    raw = depth_to_meters(frames[0], cfg.preproc.max_sensor_depth)
+    m, _ = allocate_from_depth(make_block_map(bm, device=device), cam, tc, bm, T, raw)
+    vis = visible_blocks(m, cam, tc, bm, T, depth=raw)
+    mk = m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone())
+    mp = m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone())
+    counts = (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
+    for call in range(2):
+        _, nk = integrate_blocks_cuda(mk, cam, tc, bm, T, raw, vis)
+        _, np_ = integrate_blocks(mp, cam, tc, bm, T, raw, vis)
+        torch.cuda.synchronize()
+        equal = torch.equal(mk.tsdf, mp.tsdf) and torch.equal(mk.weight, mp.weight)
+        updated = int((mp.weight > call).sum())
+        print(f"integrate 4^3 blocks (per-voxel kernel), call {call}: num_visible "
+              f"{int(nk)}, {updated} voxels updated in every call so far, "
+              f"pool bit-equal {equal}")
+        check(int(nk) == int(np_) > 1000 and updated > 0, "4^3 blocks: trivial comparison")
+        check(equal, "4^3 blocks: kernel and plain pools differ")
+    check((integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
+          == (counts[0] + 2, counts[1]), "4^3 blocks did not go through the per-voxel kernel")
 
 
 def main_path(frames, poses, device) -> int:
@@ -279,9 +399,11 @@ def main_path(frames, poses, device) -> int:
     state0 = pipe.init()
     torch.cuda.synchronize()
     integrate_blocks_cuda.launches = 0
+    integrate_blocks_cuda.vector_launches = 0
     state, est, auxes = run(pipe, state0, frames)
     torch.cuda.synchronize()
     launches = integrate_blocks_cuda.launches
+    vector_launches = integrate_blocks_cuda.vector_launches
 
     est_np = [T.cpu().numpy() for T in est]
     for i, a in enumerate(auxes):
@@ -293,11 +415,13 @@ def main_path(frames, poses, device) -> int:
         )
     ate = ate_rmse(est_np, poses, align=False)
     print(f"main path: {len(frames)} frames, ATE {ate * 1000:.3f} mm, "
-          f"resets {int(state.resets)}, kernel launches {launches}")
+          f"resets {int(state.resets)}, kernel launches {launches} "
+          f"({vector_launches} of the column kernel)")
     check(all(bool(a.ok) for a in auxes), "a frame failed to track")
     check(int(state.resets) == 0, "the pipeline reset")
     check(ate < ATE_LIMIT_M, f"ATE {ate} m >= {ATE_LIMIT_M} m")
     check(launches == len(frames), f"{launches} kernel launches for {len(frames)} frames")
+    check(vector_launches == launches, "the main path did not take the column kernel")
     check(int(state.num_blocks) > 0, "no blocks allocated")
     check(all(int(a.blocks_dropped) == 0 for a in auxes), "blocks dropped")
     check(all(np.isfinite(T).all() for T in est_np), "non-finite pose")
@@ -386,6 +510,7 @@ def main() -> int:
         print(f"rendered {len(frames)} frames {tuple(frames[0].shape)} "
               f"{frames[0].dtype} in {time.perf_counter() - t0:.2f} s")
         k = kernel_vs_plain(frames, poses, device)
+        generic_path_check(frames, poses, device)
         launches = main_path(frames, poses, device)
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
@@ -398,9 +523,14 @@ def main() -> int:
         "source": KERNEL_SOURCE,
         "replaces": KERNEL_REPLACES,
         "launches": launches,
+        "launches_per_frame": launches / FRAMES,
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],
+        "kernel_ms": k["kernel_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,  # no single PyTorch call computes this function
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -168,7 +168,7 @@ def test_allocate_matches_jax(case):
 
 def test_lookup_and_reset(seq):
     _, tcfg_, sj, _, _ = seq
-    st = block_state_from_numpy(sj)
+    st = block_state_from_numpy(sj, device="cpu")
     m = st.block_map()
     mj = jbm.BlockMap(*[jnp.asarray(sj[f]) for f in jbm.BlockMap._fields])
     coords = np.concatenate([sj["block_coords"][:50],
@@ -187,7 +187,7 @@ def test_lookup_and_reset(seq):
 def test_allocate_from_depth_matches_jax(seq):
     jc, tc, sj, f3, T3 = seq
     mj = jbm.BlockMap(*[jnp.asarray(sj[f]) for f in jbm.BlockMap._fields])
-    mt = block_state_from_numpy(sj).block_map()
+    mt = block_state_from_numpy(sj, device="cpu").block_map()
     raw = np.asarray(j_depth_to_meters(jnp.asarray(f3)))
     T = np.asarray(T3, np.float32)
     for m_j, m_t in ((mj, mt), (jbm.reset_block_map(mj), tbm.reset_block_map(mt))):
@@ -210,7 +210,7 @@ def test_visible_sets_match_jax(seq, cull, v_max):
         jc = dataclasses.replace(jc, blockmap=dataclasses.replace(jc.blockmap, max_visible_blocks=v_max))
         tc = config_from_reference(jc)
     mj = jbm.BlockMap(*[jnp.asarray(sj[f]) for f in jbm.BlockMap._fields])
-    mt = block_state_from_numpy(sj).block_map()
+    mt = block_state_from_numpy(sj, device="cpu").block_map()
     raw = np.asarray(j_depth_to_meters(jnp.asarray(f3)))
     T = np.asarray(T3, np.float32)
     dj = jnp.asarray(raw) if cull else None

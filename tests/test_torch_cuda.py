@@ -1,5 +1,6 @@
-"""The port's CUDA integrate kernel on the card, held to the bit against
-its plain PyTorch version over the whole pool.
+"""The port's CUDA integrate kernels on the card (the column kernel for
+blocks of 8^3, the per-voxel kernel for any other size), held to the bit
+against their plain PyTorch version over the whole pool.
 
 This file imports no jax, so it runs on a GPU machine without it
 (``tests/conftest.py`` imports jax, hence ``--noconftest``)::
@@ -9,7 +10,9 @@ This file imports no jax, so it runs on a GPU machine without it
 Without a card the ``cuda`` tests skip.
 """
 
+import ctypes
 import dataclasses
+import math
 import warnings
 
 import pytest
@@ -29,11 +32,12 @@ from topfusion_tpu_torch.io.synthetic import SyntheticScene, orbit_trajectory
 from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
 from topfusion_tpu_torch.ops import blockmap as tbm
 from topfusion_tpu_torch.ops import tsdf_block as ttb
+from topfusion_tpu_torch.ops.cuda.build import load_library
 from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
 from topfusion_tpu_torch.ops.depth import depth_to_meters
 
 
-def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False):
+def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False, block_size=8):
     """The 80x64 configuration of tests/test_pipeline_block.py (plain
     integrate), with a low max_weight so the weight rules bite."""
     return PipelineConfig(
@@ -43,7 +47,7 @@ def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False):
         dense=DenseVolumeConfig(dims=(96, 96, 96), origin=(-0.48, -0.48, 0.4)),
         tsdf=TSDFConfig(voxel_size=0.01, trunc_dist=0.04, max_weight=max_weight,
                         stop_integrating_at_max_weight=stop_at_max),
-        blockmap=BlockMapConfig(capacity=1 << 13, max_new_blocks_per_frame=2048,
+        blockmap=BlockMapConfig(block_size=block_size, capacity=1 << 13, max_new_blocks_per_frame=2048,
                                 max_visible_blocks=1 << 12, alloc_pixel_stride=1,
                                 alloc_steps=6, pool_dtype=pool_dtype,
                                 use_pallas_integrate=False),
@@ -51,14 +55,13 @@ def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False):
     )
 
 
-@pytest.fixture(scope="module")
-def mapped():
-    """A map after 3 frames on the card, the 4th frame's depth and pose,
-    and its visible set."""
+def map_after_three_frames(block_size):
+    """A map of ``block_size``^3 blocks after 3 frames on the card, the
+    4th frame's depth and pose, and its visible set."""
     if not torch.cuda.is_available():
         pytest.skip("the CUDA integrate kernel runs only on an NVIDIA GPU")
     dev = torch.device("cuda")
-    cfg = small_cfg()
+    cfg = small_cfg(block_size=block_size)
     poses = orbit_trajectory(4, max_angle_deg=4.0, max_shift=0.04, seed=3)
     scene = SyntheticScene()
     frames = [scene.render_depth_mm(cfg.camera, torch.as_tensor(T, device=dev)) for T in poses]
@@ -73,23 +76,117 @@ def mapped():
     return m, T, raw, vis, (pipe, state, frames[3])
 
 
+@pytest.fixture(scope="module")
+def mapped():
+    return map_after_three_frames(8)
+
+
+@pytest.fixture(scope="module")
+def mapped4():
+    return map_after_three_frames(4)
+
+
+def as_pool(m, cfg):
+    """``m`` with its pool in ``cfg``'s dtype and weights clamped to 2."""
+    dt = tbm.pool_dtype(cfg.blockmap.pool_dtype)
+    return m._replace(tsdf=tbm.encode_tsdf(tbm.decode_tsdf(m.tsdf), dt),
+                      weight=tbm.encode_weight(tbm.decode_weight(m.weight).clamp(max=2), dt))
+
+
+def kernel_and_plain(m, cfg, T, raw, vis):
+    """Both versions on clones of ``m``: (kernel map, plain map, kernel
+    count, plain count, (launches, vector launches) of the kernel call)."""
+    args = (cfg.camera, cfg.tsdf, cfg.blockmap, T, raw, vis)
+    before = (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
+    k, nk = integrate_blocks_cuda(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    p, np_ = ttb.integrate_blocks(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    torch.cuda.synchronize()
+    counts = (integrate_blocks_cuda.launches - before[0],
+              integrate_blocks_cuda.vector_launches - before[1])
+    return k, p, int(nk), int(np_), counts
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["int16", "float32", "bfloat16"])
 @pytest.mark.parametrize("stop_at_max", [False, True])
 def test_kernel_matches_plain(mapped, dtype, stop_at_max):
     m, T, raw, vis, _ = mapped
     cfg = small_cfg(dtype, stop_at_max=stop_at_max)
-    dt = tbm.pool_dtype(dtype)
-    m = m._replace(tsdf=tbm.encode_tsdf(tbm.decode_tsdf(m.tsdf), dt),
-                   weight=tbm.encode_weight(tbm.decode_weight(m.weight).clamp(max=2), dt))
-    args = (cfg.camera, cfg.tsdf, cfg.blockmap, T, raw, vis)
-    before = integrate_blocks_cuda.launches
-    k, nk = integrate_blocks_cuda(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
-    p, np_ = ttb.integrate_blocks(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
-    torch.cuda.synchronize()
-    assert integrate_blocks_cuda.launches == before + 1
-    assert int(nk) == int(np_) > 100
+    m = as_pool(m, cfg)
+    k, p, nk, np_, counts = kernel_and_plain(m, cfg, T, raw, vis)
+    assert counts == (1, 1)  # one launch, of the column kernel
+    assert nk == np_ > 100
     assert int((p.weight != m.weight).sum()) > 1000
+    assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32", "bfloat16"])
+@pytest.mark.parametrize("entries", ["five", "one", "none_live"])
+def test_kernel_matches_plain_on_odd_lists(mapped, dtype, entries):
+    """Lists that do not fill their last CTA (5 entries, 1 entry: the
+    ones with the most updated voxels), and a full list whose mask is
+    all false."""
+    m, T, raw, vis, _ = mapped
+    cfg = small_cfg(dtype)
+    m = as_pool(m, cfg)
+    slots, coords, mask = vis
+    if entries == "none_live":
+        sub = (slots, coords, torch.zeros_like(mask))
+    else:
+        full, _ = ttb.integrate_blocks(
+            m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()),
+            cfg.camera, cfg.tsdf, cfg.blockmap, T, raw, vis)
+        per_row = (full.weight != m.weight).flatten(1).sum(1)
+        per_entry = torch.where(mask, per_row[slots.clamp(min=0).long()], 0)
+        pick = torch.argsort(per_entry, descending=True)[:5 if entries == "five" else 1]
+        sub = tuple(v[pick].contiguous() for v in vis)
+    k, p, nk, np_, counts = kernel_and_plain(m, cfg, T, raw, sub)
+    assert counts == (1, 1)
+    assert nk == np_ == {"five": 5, "one": 1, "none_live": 0}[entries]
+    updated = int((p.weight != m.weight).sum())
+    assert (updated == 0) if entries == "none_live" else (updated > 100)
+    assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32", "bfloat16"])
+def test_generic_kernel_matches_plain(mapped4, dtype):
+    """Blocks of 4^3 go through the per-voxel kernel: launched, not
+    counted as a column launch, and bit-equal to the plain version."""
+    m, T, raw, vis, _ = mapped4
+    cfg = small_cfg(dtype, block_size=4)
+    m = as_pool(m, cfg)
+    k, p, nk, np_, counts = kernel_and_plain(m, cfg, T, raw, vis)
+    assert counts == (1, 0)
+    assert nk == np_ > 100
+    assert int((p.weight != m.weight).sum()) > 1000
+    assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_in_kernel_pose_inverse_matches_plain(mapped, dtype):
+    """A pose turned 25 degrees about a skew axis and shifted: the
+    kernel's own inverse of T_wc gives the pool that the plain version
+    gets through se3_inverse."""
+    m, T, raw, _, _ = mapped
+    cfg = small_cfg(dtype)
+    m = as_pool(m, cfg)
+    axis = torch.tensor([0.3, -0.8, 0.52], dtype=torch.float64)
+    axis = axis / axis.norm()
+    K = torch.tensor([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]], [-axis[1], axis[0], 0]],
+                     dtype=torch.float64)
+    a = math.radians(25.0)
+    dT = torch.eye(4, dtype=torch.float64)
+    dT[:3, :3] = torch.eye(3, dtype=torch.float64) + math.sin(a) * K + (1 - math.cos(a)) * (K @ K)
+    dT[:3, 3] = torch.tensor([0.07, -0.05, 0.11], dtype=torch.float64)
+    T2 = (T.double().cpu() @ dT).float().to(T.device)
+    vis = ttb.visible_blocks(m, cfg.camera, cfg.tsdf, cfg.blockmap, T2)
+    k, p, nk, np_, counts = kernel_and_plain(m, cfg, T2, raw, vis)
+    assert counts == (1, 1)
+    assert nk == np_ > 20
+    assert int((p.weight != m.weight).sum()) > 100
     assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
 
 
@@ -110,6 +207,60 @@ def test_kernel_rejects_bad_inputs(mapped):
         with pytest.raises(ValueError):
             integrate_blocks_cuda(kw["m"], cfg.camera, cfg.tsdf, cfg.blockmap, T,
                                   kw["depth"], kw["vis"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("change", [
+    dict(view_frustum_min=0.0), dict(view_frustum_max=1e7), dict(trunc_dist=1e-9)])
+def test_kernel_refuses_constants_outside_its_range(mapped, change):
+    """The kernel's division is exact for constants between 1e-6 and 1e6;
+    the entry point launches nothing for others."""
+    m, T, raw, vis, _ = mapped
+    cfg = small_cfg()
+    before = integrate_blocks_cuda.launches
+    with pytest.raises(ValueError, match="1e-6"):
+        integrate_blocks_cuda(m, cfg.camera, dataclasses.replace(cfg.tsdf, **change),
+                              cfg.blockmap, T, raw, vis)
+    assert integrate_blocks_cuda.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("negative_divisor", [False, True])
+def test_kernel_division_is_correctly_rounded(mapped, negative_divisor):
+    """The kernel's divide() (the division operator's fast path without
+    its range check, see csrc/integrate.cu) against PyTorch's division on
+    16 M pairs over the range the kernel uses it on: divisors of
+    magnitude 1e-6..1e6, dividends zero or of magnitude 1e-20..1e30, and
+    the weights' small integers."""
+    fn = load_library("integrate").tf_divide
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    n = 1 << 24
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def log_uniform(lo, hi):
+        e = torch.rand(n, device="cuda", generator=gen) * (math.log(hi) - math.log(lo)) + math.log(lo)
+        return torch.exp(e)
+
+    a = log_uniform(1e-20, 1e30)
+    a = torch.where(torch.rand(n, device="cuda", generator=gen) < 0.5, a, -a)
+    if not negative_divisor:  # 0 / -b is -0; the kernel divides zero only by b > 0
+        a[::1001] = 0.0
+    b = log_uniform(1e-6, 1e6)
+    third = n // 3
+    a[:third] = log_uniform(1e-3, 1e2)[:third]       # near the divisors
+    b[:third] = log_uniform(1e-2, 3.0)[:third]       # depths
+    b[third:2 * third] = torch.randint(1, 102, (third,), device="cuda", generator=gen).float()
+    if negative_divisor:
+        b = -b
+    out = torch.empty_like(a)
+    err = fn(a.data_ptr(), b.data_ptr(), out.data_ptr(), n,
+             torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    want = a / b
+    assert torch.isfinite(want).all()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
 @pytest.mark.cuda

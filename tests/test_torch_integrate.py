@@ -8,6 +8,7 @@ imports no jax) holds it against the plain version to the bit.
 """
 
 import dataclasses
+import inspect
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,8 @@ from topfusion_tpu.ops.pallas.integrate_kernel import integrate_blocks_pallas
 from topfusion_tpu_torch.convert import config_from_reference
 from topfusion_tpu_torch.ops import blockmap as tbm
 from topfusion_tpu_torch.ops import tsdf_block as ttb
-from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+from topfusion_tpu_torch.ops.cuda import integrate as cuda_integrate
+from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda, launch_plan
 
 torch.set_num_threads(2)
 
@@ -154,9 +156,93 @@ def test_wrapper_runs_plain_on_cpu(seq, dtype):
     _, tc, _, pool = make_case(seq, dtype, False)
     a, na = ttb.integrate_blocks(port_map(pool), tc.camera, tc.tsdf, tc.blockmap,
                                  t(T), t(raw), tuple(t(v) for v in vis))
-    before = integrate_blocks_cuda.launches
+    before = (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
     b, nb = integrate_blocks_cuda(port_map(pool), tc.camera, tc.tsdf, tc.blockmap,
                                   t(T), t(raw), tuple(t(v) for v in vis))
-    assert integrate_blocks_cuda.launches == before
+    assert (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches) == before
     assert int(na) == int(nb)
     assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.weight, b.weight)
+
+
+# ------------------------------------------------- the kernel's launch plan
+@pytest.mark.parametrize("block_size", [4, 8])
+@pytest.mark.parametrize("num_entries", [0, 1, 5, 4096])
+def test_launch_plan_covers_every_entry_once(num_entries, block_size):
+    """Blocks of 8^3 take the column kernel (64 threads per entry, two
+    entries per CTA of 128), any other size the per-voxel kernel (one CTA
+    of B^3 threads per entry); the grid reaches every entry, none twice,
+    and is empty only for an empty list."""
+    plan = launch_plan(num_entries, block_size)
+    if block_size == 8:
+        assert plan.path == "column" and plan.entries_per_cta == 2
+        assert plan.block == 128 == plan.entries_per_cta * block_size ** 2
+    else:
+        assert plan.path == "voxel" and plan.entries_per_cta == 1
+        assert plan.block == block_size ** 3
+    assert plan.block <= 1024 and plan.block % 32 == 0
+    served = [cta * plan.entries_per_cta + i
+              for cta in range(plan.grid) for i in range(plan.entries_per_cta)]
+    assert len(set(served)) == len(served)
+    assert set(range(num_entries)) <= set(served)
+    # No CTA without an entry: the grid is the least that covers the list.
+    assert (plan.grid - 1) * plan.entries_per_cta < num_entries or plan.grid == 0
+    assert (plan.grid == 0) == (num_entries == 0)
+
+
+@pytest.mark.parametrize("num_entries,block_size", [(16, 11), (16, 0), (-1, 8)])
+def test_launch_plan_refuses(num_entries, block_size):
+    """More voxels than a CTA has threads, no voxels, a negative list."""
+    with pytest.raises(ValueError):
+        launch_plan(num_entries, block_size)
+
+
+@pytest.mark.parametrize("dtype", ["int16", "bfloat16", "float32"])
+def test_z_column_is_contiguous_and_aligned(dtype):
+    """The layout the column kernel rests on: the z-column (x, y) of pool
+    row ``slot`` is 8 contiguous elements at element offset
+    slot*512 + x*64 + y*8, so 16 bytes at a 16-byte boundary in a 2-byte
+    pool (32 at a 32-byte boundary in float32)."""
+    cfg = dataclasses.replace(config_from_reference(make_cfg()).blockmap,
+                              capacity=64, pool_dtype=dtype)
+    m = tbm.make_block_map(cfg)
+    assert cfg.block_size == 8 and tuple(m.tsdf.shape) == (65, 8, 8, 8)
+    size = m.tsdf.element_size()
+    for pool in (m.tsdf, m.weight):
+        assert pool.is_contiguous() and pool.data_ptr() % 16 == 0
+        flat = pool.view(-1)
+        for slot, x, y in [(0, 0, 0), (3, 5, 7), (63, 7, 0), (64, 2, 6)]:
+            col = pool[slot, x, y, :]
+            offset = slot * 512 + x * 64 + y * 8
+            assert col.shape == (8,) and col.stride() == (1,)
+            assert col.storage_offset() == offset
+            assert col.data_ptr() == flat[offset:].data_ptr()
+            assert (col.data_ptr() - pool.data_ptr()) % (8 * size) == 0
+            assert col.data_ptr() % 16 == 0
+
+
+def test_bfloat16_codec_round_trips_every_finite_value():
+    """encode(decode(a)) == a for every finite bfloat16 (tsdf and weight):
+    with the int16 round trip of tests/test_torch_blockmap.py, what lets
+    the kernel leave untouched voxels unwritten."""
+    bits = np.arange(-32768, 32768, dtype=np.int16)
+    a = t(bits).view(torch.bfloat16)
+    finite = torch.isfinite(a.to(torch.float32))
+    assert int(finite.sum()) == 65536 - 2 * 128
+    for dec, enc in ((tbm.decode_tsdf, tbm.encode_tsdf), (tbm.decode_weight, tbm.encode_weight)):
+        back = enc(dec(a), torch.bfloat16)
+        assert torch.equal(back.view(torch.int16)[finite], a.view(torch.int16)[finite])
+
+
+def test_int16_weight_codec_round_trips():
+    """Every weight an int16 pool can hold (0..32767) survives the codec."""
+    w = t(np.arange(0, 32768, dtype=np.int16))
+    assert torch.equal(tbm.encode_weight(tbm.decode_weight(w), torch.int16), w)
+
+
+def test_wrapper_leaves_the_pose_inverse_to_the_kernel():
+    """The wrapper hands T_wc to the kernel as it is: it neither inverts
+    the pose nor copies an argument into a contiguous one."""
+    assert not hasattr(cuda_integrate, "se3_inverse")
+    src = inspect.getsource(integrate_blocks_cuda) + inspect.getsource(cuda_integrate.launch_kernel)
+    assert "se3_inverse" not in src and ".contiguous()" not in src
+    assert "T_wc.data_ptr()" in src

@@ -58,7 +58,7 @@ def runs():
         js, aux = jp.step(js, jnp.asarray(f))
         j_poses.append(np.asarray(js.T_wc))
         j_aux.append(jax.tree.map(np.asarray, aux))
-    tp = BlockPipeline(config_from_reference(cfg))
+    tp = BlockPipeline(config_from_reference(cfg), device="cpu")
     ts = tp.init()
     t_poses, t_aux = [], []
     for f in frames:
@@ -107,7 +107,7 @@ def test_carried_state_steps_alike(runs):
         k: (tuple(jnp.asarray(x) for x in v) if isinstance(v, tuple) else jnp.asarray(v))
         for k, v in carried.items()})
     js, ja = runs["jp"].step(js, jnp.asarray(f))
-    ts, ta = runs["tp"].step(block_state_from_numpy(carried), torch.from_numpy(f))
+    ts, ta = runs["tp"].step(block_state_from_numpy(carried, device="cpu"), torch.from_numpy(f))
     assert bool(ta.ok) and bool(ja.ok)
     assert np.abs(ts.T_wc.numpy()[:3, 3] - np.asarray(js.T_wc)[:3, 3]).max() <= 5e-4
     assert int(ts.num_blocks) == int(js.num_blocks)
@@ -119,7 +119,7 @@ def test_carried_state_steps_alike(runs):
 
 def test_state_round_trip_and_input_untouched(runs):
     carried = runs["carried"]
-    st = block_state_from_numpy(carried)
+    st = block_state_from_numpy(carried, device="cpu")
     back = block_state_to_numpy(st)
     assert back.keys() == carried.keys()
     for k, v in carried.items():
@@ -137,7 +137,7 @@ def test_reset_on_garbage_frame():
     cfg = config_from_reference(make_cfg())
     scene = SyntheticScene()
     d0 = torch.from_numpy(np.array(scene.render_depth_mm(make_cfg().camera, jnp.eye(4))))
-    pipe = BlockPipeline(cfg)
+    pipe = BlockPipeline(cfg, device="cpu")
     state, aux0 = pipe.step(pipe.init(), d0)
     assert bool(aux0.ok) and int(state.num_blocks) > 0
     state, aux1 = pipe.step(state, torch.zeros_like(d0))
@@ -154,8 +154,9 @@ def test_integrate_paths_agree_on_cpu(runs):
     plain on CPU tensors) give the same step."""
     cfg = make_cfg()
     plain = BlockPipeline(config_from_reference(dataclasses.replace(
-        cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=False))))
-    st = block_state_from_numpy(runs["carried"])
+        cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=False))),
+        device="cpu")
+    st = block_state_from_numpy(runs["carried"], device="cpu")
     f = torch.from_numpy(runs["frames"][CARRY_AT])
     a, _ = plain.step(st, f)
     b, _ = runs["tp"].step(st, f)
@@ -170,4 +171,26 @@ def test_unported_options_raise(change):
     else:
         cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(cfg.tsdf, use_color=True))
     with pytest.raises(NotImplementedError):
-        BlockPipeline(config_from_reference(cfg))
+        BlockPipeline(config_from_reference(cfg), device="cpu")
+
+
+def test_entry_points_default_to_the_card(runs):
+    """Without a device the entry points run on the card; where there is
+    none they raise and never carry on on the CPU.  Asked for the CPU by
+    name they run there."""
+    cfg = config_from_reference(make_cfg())
+    if torch.cuda.is_available():
+        assert BlockPipeline(cfg).device.type == "cuda"
+        assert block_state_from_numpy(runs["carried"]).tsdf.device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            BlockPipeline(cfg)
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            block_state_from_numpy(runs["carried"])
+        with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+            BlockPipeline(cfg, device="cuda:0")
+    pipe = BlockPipeline(cfg, device="cpu")
+    assert pipe.device == torch.device("cpu")
+    assert pipe.init().tsdf.device.type == "cpu"
+    st = block_state_from_numpy(runs["carried"], device="cpu")
+    assert all(x.device.type == "cpu" for x in (st.tsdf, st.T_wc, *st.model_points))

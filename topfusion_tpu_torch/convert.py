@@ -17,6 +17,7 @@ import torch
 
 from .config import PipelineConfig
 from .models.block_pipeline import BlockState
+from .utils.device_info import entry_device
 
 _TUPLE_FIELDS = ("model_points", "model_normals")
 
@@ -51,10 +52,13 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a.copy()).to(device)
 
 
-def block_state_from_numpy(arrays: Mapping[str, Any], device="cpu") -> BlockState:
-    """A port ``BlockState`` from a mapping of every BlockState field to
-    numpy arrays (``model_points`` / ``model_normals``: a sequence of
-    per-level arrays), e.g. a JAX ``BlockState._asdict()``."""
+def block_state_from_numpy(arrays: Mapping[str, Any], device="cuda") -> BlockState:
+    """A port ``BlockState`` on ``device`` (the card by default, a
+    ``RuntimeError`` where there is none) from a mapping of every
+    BlockState field to numpy arrays (``model_points`` /
+    ``model_normals``: a sequence of per-level arrays), e.g. a JAX
+    ``BlockState._asdict()``."""
+    device = entry_device(device)
     fields = {}
     for name in BlockState._fields:
         v = arrays[name]

@@ -1,6 +1,6 @@
 """Block-sparse fusion pipeline (port of
 ``topfusion_tpu/models/block_pipeline.py``): one voxel-hashed fusion
-step per depth frame, on an explicit device.
+step per depth frame, on the card unless the caller names another device.
 
 Per frame: preprocess -> vertex/normal pyramid -> frame-to-model ICP ->
 reset on failure -> allocate from depth -> visible set (aged, with a
@@ -39,6 +39,7 @@ from ..ops.tsdf_block import (
     visible_blocks,
     visible_blocks_incremental,
 )
+from ..utils.device_info import entry_device
 
 
 class BlockState(NamedTuple):
@@ -79,9 +80,10 @@ class BlockStepAux(NamedTuple):
 
 
 class BlockPipeline:
-    """Functional block-sparse pipeline on ``device``."""
+    """Functional block-sparse pipeline on ``device``: the card by
+    default (a ``RuntimeError`` where there is none), ``"cpu"`` by name."""
 
-    def __init__(self, cfg: PipelineConfig, device="cpu"):
+    def __init__(self, cfg: PipelineConfig, device="cuda"):
         if cfg.raycast.model_maps != "splat":
             raise NotImplementedError(
                 f"raycast.model_maps={cfg.raycast.model_maps!r}: the port has "
@@ -91,7 +93,7 @@ class BlockPipeline:
         if cfg.tsdf.use_color:
             raise NotImplementedError("tsdf.use_color: color fusion is not ported yet")
         self.cfg = cfg
-        self.device = torch.device(device)
+        self.device = entry_device(device)
 
     def init(self) -> BlockState:
         cfg = self.cfg

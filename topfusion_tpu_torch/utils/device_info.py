@@ -10,6 +10,21 @@ import subprocess
 import torch
 
 
+def entry_device(device="cuda") -> torch.device:
+    """The device an entry point of the port runs on: the card, unless
+    the caller names another (the tests name the CPU).  Raises where the
+    card is asked for, by default or by name, and there is none: an entry
+    point never carries on on the CPU unasked."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(dev)!r} was asked for (it is the default) but "
+            "torch.cuda.is_available() is false; pass device=\"cpu\" to run "
+            "on the CPU"
+        )
+    return dev
+
+
 def nvidia_smi_name_power() -> str:
     """``nvidia-smi --query-gpu=name,power.limit`` of every card, one line
     each, or a note that nvidia-smi is missing or failed."""
