@@ -18,6 +18,7 @@ from topfusion_tpu.ops.depth import depth_to_meters as j_depth_to_meters
 from topfusion_tpu_torch.convert import block_state_from_numpy, config_from_reference
 from topfusion_tpu_torch.ops import blockmap as tbm
 from topfusion_tpu_torch.ops import tsdf_block as ttb
+from topfusion_tpu_torch.utils.numerics import linspace01
 
 torch.set_num_threads(2)
 
@@ -113,7 +114,7 @@ def test_keys_and_hash_negative_coords(num_buckets):
 @pytest.mark.parametrize("k", [1, 2, 4, 6, 7, 13])
 def test_allocation_fractions_match_jnp_linspace(k):
     np.testing.assert_array_equal(
-        ttb._linspace01(k, "cpu").numpy(),
+        linspace01(k, "cpu").numpy(),
         np.asarray(jnp.linspace(0.0, 1.0, k, dtype=jnp.float32)))
 
 
@@ -182,6 +183,39 @@ def test_lookup_and_reset(seq):
     assert_tuples_equal(tbm.select_block_map(torch.tensor(True), m), jbm.reset_block_map(mj),
                         "select(True)")
     assert_tuples_equal(tbm.select_block_map(torch.tensor(False), m), mj, "select(False)")
+
+
+@pytest.mark.parametrize("use_color", [False, True])
+@pytest.mark.parametrize("dtype", ["int16", "float32", "bfloat16"])
+def test_make_reset_select_with_color_pool(dtype, use_color):
+    """``make_block_map`` builds the JAX package's arrays (a
+    [C+1,B,B,B,3] color pool of the pool dtype with ``use_color``, else
+    the [1,1,1,1,3] dummy), and reset / select return a painted pool to
+    them."""
+    cfg = dataclasses.replace(make_cfg().blockmap, capacity=64, pool_dtype=dtype)
+    tcfg = config_from_reference(dataclasses.replace(make_cfg(), blockmap=cfg)).blockmap
+    mj = jbm.make_block_map(cfg, use_color=use_color)
+    mt = tbm.make_block_map(tcfg, use_color=use_color, device="cpu")
+    assert mt.color.shape == ((65, 8, 8, 8, 3) if use_color else (1, 1, 1, 1, 3))
+    assert mt.color.dtype == mt.tsdf.dtype == tbm.pool_dtype(dtype)
+
+    def widen(m):
+        return [np.asarray(a.astype(jnp.float32)) if a.dtype == jnp.bfloat16 else np.asarray(a)
+                for a in m]
+
+    def host(m):
+        return [a.float().numpy() if a.dtype == torch.bfloat16 else a.numpy() for a in m]
+
+    for a, b in zip(host(mt), widen(mj)):
+        np.testing.assert_array_equal(a, b)
+    painted = mt._replace(color=torch.ones_like(mt.color), weight=torch.ones_like(mt.weight),
+                          num_blocks=torch.tensor(3, dtype=torch.int32))
+    for out in (tbm.reset_block_map(painted), tbm.select_block_map(torch.tensor(True), painted)):
+        for a, b in zip(host(out), widen(mj)):
+            np.testing.assert_array_equal(a, b)
+    kept = tbm.select_block_map(torch.tensor(False), painted)
+    assert all(torch.equal(a, b) for a, b in zip(kept, painted))
+    assert kept.color is not painted.color        # a new tensor: the step writes into it
 
 
 def test_allocate_from_depth_matches_jax(seq):

@@ -1,6 +1,8 @@
 """The port's CUDA integrate kernels on the card (the column kernel for
 blocks of 8^3, the per-voxel kernel for any other size), held to the bit
-against their plain PyTorch version over the whole pool.
+against their plain PyTorch version over the whole pool; and the display,
+color and point-cloud paths on the card: their host syncs, and their
+agreement with the same calls on the CPU.
 
 This file imports no jax, so it runs on a GPU machine without it
 (``tests/conftest.py`` imports jax, hence ``--noconftest``)::
@@ -28,6 +30,7 @@ from topfusion_tpu_torch.config import (
     RaycastConfig,
     TSDFConfig,
 )
+from topfusion_tpu_torch.convert import block_state_from_numpy, block_state_to_numpy
 from topfusion_tpu_torch.io.synthetic import SyntheticScene, orbit_trajectory
 from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
 from topfusion_tpu_torch.ops import blockmap as tbm
@@ -35,6 +38,7 @@ from topfusion_tpu_torch.ops import tsdf_block as ttb
 from topfusion_tpu_torch.ops.cuda.build import load_library
 from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
 from topfusion_tpu_torch.ops.depth import depth_to_meters
+from topfusion_tpu_torch.ops.pointcloud import extract_pointcloud_blocks
 
 
 def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False, block_size=8):
@@ -295,6 +299,121 @@ def test_step_syncs_the_host_once(mapped):
     syncs = [str(w.message) for w in rec
              if str(w.message).startswith("called a synchronizing")]
     assert len(syncs) == 1, syncs
+
+
+# ----------------------------------------------------------------- display, color
+@pytest.fixture(scope="module")
+def colored():
+    """A color map after 4 RGB-D frames on the card (kernel integrate):
+    (pipeline, state, next depth frame, next rgb frame)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the display and color paths of this file run on an NVIDIA GPU")
+    dev = torch.device("cuda")
+    cfg = small_cfg("int16", max_weight=100.0)
+    cfg = dataclasses.replace(
+        cfg, tsdf=dataclasses.replace(cfg.tsdf, use_color=True),
+        blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=None))
+    scene = SyntheticScene()
+    poses = [torch.as_tensor(T, device=dev)
+             for T in orbit_trajectory(5, max_angle_deg=4.0, max_shift=0.04, seed=3)]
+    depths = [scene.render_depth_mm(cfg.camera, T) for T in poses]
+    rgbs = [scene.render_rgb(cfg.camera, T) for T in poses]
+    pipe = BlockPipeline(cfg, dev)
+    state = pipe.init()
+    for d, c in zip(depths[:4], rgbs[:4]):
+        state, aux = pipe.step_rgb(state, d, c)
+        assert bool(aux.ok)
+    return pipe, state, depths[4], rgbs[4]
+
+
+def forbid_syncs(fn):
+    """Run ``fn`` with PyTorch raising on every synchronizing call."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["render", "render_view", "render_normals",
+                                  "render_confidence", "render_color"])
+def test_renders_make_no_host_sync(colored, mode):
+    pipe, state, _, _ = colored
+    if mode == "render_view":
+        V = state.T_wc.clone()
+        V[0, 3] += 0.05
+        img = forbid_syncs(lambda: pipe.render(state, V))
+    else:
+        img = forbid_syncs(lambda: getattr(pipe, mode)(state))
+    assert img.dtype == torch.uint8 and img.shape == (64, 80, 3) and img.is_cuda
+    assert int((img.sum(-1) > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_extract_pointcloud_makes_no_host_sync(colored):
+    pipe, state, _, _ = colored
+    pc = forbid_syncs(lambda: extract_pointcloud_blocks(
+        state.block_map(), pipe.cfg.tsdf, pipe.cfg.blockmap, max_points=1 << 16))
+    assert 1000 < int(pc.count) == int(pc.valid.sum()) <= 1 << 16
+
+
+@pytest.mark.cuda
+def test_step_rgb_syncs_the_host_once(colored):
+    """Color fusion adds no sync to the step's one (ICP's eigvalsh)."""
+    pipe, state, depth, rgb = colored
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            new, aux = pipe.step_rgb(state, depth, rgb)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message) for w in rec
+             if str(w.message).startswith("called a synchronizing")]
+    assert len(syncs) == 1, syncs
+    assert bool(aux.ok) and int((new.color != state.color).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_cpu_and_card_displays_agree(colored):
+    """The same state rendered on the CPU and on the card: ``hit`` equal
+    and depth within 1e-5 m on 99.5% of the pixels, images within one
+    grey level on 99% (the tolerances the CPU tests hold against the JAX
+    package; every operation of the march rounds once on both devices,
+    only ``pow`` may differ in the last bit), and the same point cloud."""
+    pipe, state, _, _ = colored
+    cpu_pipe = BlockPipeline(pipe.cfg, device="cpu")
+    cpu_state = block_state_from_numpy(block_state_to_numpy(state), device="cpu")
+    a = pipe._free_view_raycast(state, state.T_wc)
+    b = cpu_pipe._free_view_raycast(cpu_state, cpu_state.T_wc)
+    assert int(b.hit.sum()) > 2000
+    assert float((a.hit.cpu() == b.hit).float().mean()) >= 0.995
+    assert float(((a.depth.cpu() - b.depth).abs() <= 1e-5).float().mean()) >= 0.995
+    for mode in ("render", "render_normals", "render_confidence", "render_color"):
+        x = getattr(pipe, mode)(state).cpu().to(torch.int32)
+        y = getattr(cpu_pipe, mode)(cpu_state).to(torch.int32)
+        assert float(((x - y).abs().amax(-1) <= 1).float().mean()) >= 0.99, mode
+    pa = extract_pointcloud_blocks(state.block_map(), pipe.cfg.tsdf, pipe.cfg.blockmap, 1 << 16)
+    pb = extract_pointcloud_blocks(cpu_state.block_map(), pipe.cfg.tsdf, pipe.cfg.blockmap, 1 << 16)
+    assert int(pa.count) == int(pb.count)
+    assert torch.equal(pa.valid.cpu(), pb.valid)
+    assert float((pa.points.cpu() - pb.points).abs().max()) <= 1e-6
+
+
+@pytest.mark.cuda
+def test_depth_only_step_is_untouched_by_the_color_pass(mapped):
+    """Without rgb the step runs the device operations it ran before
+    color was ported: ``step(state, depth)`` and ``step_rgb`` on a map
+    without a color pool give the same state."""
+    _, _, _, _, (pipe, state, frame) = mapped
+    rgb = torch.zeros((64, 80, 3), dtype=torch.uint8, device=frame.device)
+    a, _ = pipe.step(state, frame)
+    b, _ = pipe.step_rgb(state, frame, rgb)
+    assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.T_wc, b.T_wc)
+    assert a.color.shape == b.color.shape == (1, 1, 1, 1, 3)
 
 
 def test_wrapper_refuses_other_devices():

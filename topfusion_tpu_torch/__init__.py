@@ -1,10 +1,13 @@
 """topfusion_tpu_torch — the PyTorch/CUDA port of ``topfusion_tpu``.
 
 A second package beside the JAX one, which stays the reference.  It
-imports torch and never jax, and nothing from ``topfusion_tpu``.  The
-ported slice is the voxel-hashed fusion step (``models.block_pipeline.
+imports torch and never jax, and nothing from ``topfusion_tpu``.  Ported
+so far: the voxel-hashed fusion step (``models.block_pipeline.
 BlockPipeline``) with its one hand-written CUDA kernel, the fused TSDF
-integrate (``csrc/integrate.cu``, wrapped by ``ops.cuda.integrate``).
+integrate (``csrc/integrate.cu``, wrapped by ``ops.cuda.integrate``);
+RGB fusion (``step_rgb``); the display (``render``, ``render_normals``,
+``render_confidence``, ``render_color`` over the hashed-map raycast);
+and point-cloud export (``ops.pointcloud``).
 """
 
 from .config import (

@@ -2,9 +2,9 @@
 importing jax.
 
 The system has no weights: what must carry across is the config tree and
-the fusion state (hash table, voxel pool, pose, model maps, visible list,
-counters), so that a state reached by one package can be stepped by the
-other.
+the fusion state (hash table, voxel pool, color pool, pose, model maps,
+visible list, counters), so that a state reached by one package can be
+stepped, rendered and exported by the other.
 """
 
 from __future__ import annotations
@@ -57,7 +57,8 @@ def block_state_from_numpy(arrays: Mapping[str, Any], device="cuda") -> BlockSta
     ``RuntimeError`` where there is none) from a mapping of every
     BlockState field to numpy arrays (``model_points`` /
     ``model_normals``: a sequence of per-level arrays), e.g. a JAX
-    ``BlockState._asdict()``."""
+    ``BlockState._asdict()``.  ``color`` is the [C+1,B,B,B,3] pool of a
+    ``use_color`` map or the [1,1,1,1,3] dummy, in the pool dtype."""
     device = entry_device(device)
     fields = {}
     for name in BlockState._fields:

@@ -1,7 +1,6 @@
-"""Synthetic depth sequences from analytic SDF scenes (port of the depth
-part of ``topfusion_tpu/io/synthetic.py``): exact ground-truth
-trajectories without any dataset on disk.  Color rendering waits for
-the color port.
+"""Synthetic depth and RGB sequences from analytic SDF scenes (port of
+``topfusion_tpu/io/synthetic.py``): exact ground-truth trajectories and
+registered flat-albedo color frames without any dataset on disk.
 """
 
 from __future__ import annotations
@@ -16,6 +15,18 @@ from ..config import CameraConfig
 from ..geometry.camera import pixel_grid
 from ..geometry.se3 import se3_exp
 from ..utils.numerics import true_div
+
+
+_PALETTE = (
+    (0.9, 0.2, 0.2),
+    (0.2, 0.8, 0.3),
+    (0.25, 0.35, 0.9),
+    (0.9, 0.8, 0.2),
+    (0.8, 0.3, 0.8),
+    (0.3, 0.8, 0.8),
+    (0.9, 0.55, 0.2),
+    (0.6, 0.6, 0.6),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -45,29 +56,32 @@ class SyntheticScene:
 
         return (vecs(self.spheres, 4), vecs(self.boxes, 6), vecs(self.planes, 4))
 
-    def sdf(self, p: torch.Tensor, prims=None) -> torch.Tensor:
-        """Exact signed distance at world points p (..., 3)."""
+    def _distances(self, p: torch.Tensor, prims=None) -> List[torch.Tensor]:
+        """Signed distance from world points p (..., 3) to each primitive,
+        in the order spheres, boxes, planes."""
         spheres, boxes, planes = prims or self.primitives(p.device, p.dtype)
-        d = torch.full(p.shape[:-1], float("inf"), dtype=p.dtype, device=p.device)
+        dists = []
         for s in spheres:
-            d = torch.minimum(d, torch.linalg.vector_norm(p - s[:3], dim=-1) - s[3])
+            dists.append(torch.linalg.vector_norm(p - s[:3], dim=-1) - s[3])
         for b in boxes:
             q = torch.abs(p - b[:3]) - b[3:]
             outside = torch.linalg.vector_norm(torch.clamp(q, min=0.0), dim=-1)
             inside = torch.clamp(torch.amax(q, dim=-1), max=0.0)
-            d = torch.minimum(d, outside + inside)
+            dists.append(outside + inside)
         for pl in planes:
-            d = torch.minimum(d, torch.sum(p * pl[:3], dim=-1) + pl[3])
+            dists.append(torch.sum(p * pl[:3], dim=-1) + pl[3])
+        return dists
+
+    def sdf(self, p: torch.Tensor, prims=None) -> torch.Tensor:
+        """Exact signed distance at world points p (..., 3)."""
+        d = torch.full(p.shape[:-1], float("inf"), dtype=p.dtype, device=p.device)
+        for dist in self._distances(p, prims):
+            d = torch.minimum(d, dist)
         return d
 
-    def render_depth(
-        self,
-        cam: CameraConfig,
-        T_wc: torch.Tensor,
-        max_depth: float = 5.0,
-        n_steps: int = 128,
-    ) -> torch.Tensor:
-        """Sphere-trace exact depth [H, W] in meters (0 = no hit)."""
+    @staticmethod
+    def _rays(cam: CameraConfig, T_wc: torch.Tensor):
+        """(origin [3], world directions [H, W, 3] with unit camera z)."""
         uv = pixel_grid(cam, device=T_wc.device)
         dirs_cam = torch.stack(
             [
@@ -77,13 +91,21 @@ class SyntheticScene:
             ],
             dim=-1,
         )
-        R = T_wc[:3, :3]
-        o = T_wc[:3, 3]
-        dirs_w = dirs_cam @ R.T
+        return T_wc[:3, 3], dirs_cam @ T_wc[:3, :3].T
+
+    def render_depth(
+        self,
+        cam: CameraConfig,
+        T_wc: torch.Tensor,
+        max_depth: float = 5.0,
+        n_steps: int = 128,
+    ) -> torch.Tensor:
+        """Sphere-trace exact depth [H, W] in meters (0 = no hit)."""
+        o, dirs_w = self._rays(cam, T_wc)
         dir_norm = torch.linalg.vector_norm(dirs_w, dim=-1)
 
         prims = self.primitives(T_wc.device)
-        t = torch.full(uv.shape[:2], 0.05, dtype=torch.float32, device=T_wc.device)
+        t = torch.full(dirs_w.shape[:2], 0.05, dtype=torch.float32, device=T_wc.device)
         for _ in range(n_steps):
             t = t + self.sdf(o + t[..., None] * dirs_w, prims) / dir_norm
         d_hit = self.sdf(o + t[..., None] * dirs_w, prims)
@@ -94,6 +116,31 @@ class SyntheticScene:
         """Depth as u16 millimeters (the sensor format)."""
         d = self.render_depth(cam, T_wc, **kw)
         return torch.round(d * 1000.0).to(torch.int32).to(torch.uint16)
+
+    # ------------------------------------------------------------- color
+    def primitive_colors(self, device=None) -> torch.Tensor:
+        """One palette RGB (in [0, 1]) per primitive, in sdf() order
+        (spheres, boxes, planes)."""
+        n = len(self.spheres) + len(self.boxes) + len(self.planes)
+        return torch.tensor(
+            [_PALETTE[i % len(_PALETTE)] for i in range(n)], dtype=torch.float32
+        ).to(device)
+
+    def color_at(self, p: torch.Tensor) -> torch.Tensor:
+        """Albedo at world points p (..., 3): the palette color of the
+        nearest primitive (flat shading, so the fused color volume can
+        recover it exactly)."""
+        which = torch.argmin(torch.stack(self._distances(p), dim=-1), dim=-1)
+        return self.primitive_colors(p.device)[which]
+
+    def render_rgb(self, cam: CameraConfig, T_wc: torch.Tensor, **kw) -> torch.Tensor:
+        """Flat-albedo RGB image [H, W, 3] uint8 registered to the depth
+        image (black where depth is invalid): the synthetic stand-in for
+        a sensor's registered RGB stream."""
+        d = self.render_depth(cam, T_wc, **kw)
+        o, dirs_w = self._rays(cam, T_wc)
+        rgb = torch.where(d[..., None] > 0.0, self.color_at(o + d[..., None] * dirs_w), 0.0)
+        return torch.round(rgb * 255.0).to(torch.uint8)
 
 
 def corridor_scene(length_m: float = 12.0, box_every: float = 0.6) -> SyntheticScene:

@@ -1,11 +1,13 @@
 """Block-sparse fusion pipeline (port of
 ``topfusion_tpu/models/block_pipeline.py``): one voxel-hashed fusion
-step per depth frame, on the card unless the caller names another device.
+step per depth (or depth + RGB) frame and the display renders of the
+fused map, on the card unless the caller names another device.
 
 Per frame: preprocess -> vertex/normal pyramid -> frame-to-model ICP ->
 reset on failure -> allocate from depth -> visible set (aged, with a
-full rescan every ``visible_rescan_every`` frames) -> integrate -> splat
-model maps -> their pyramid.
+full rescan every ``visible_rescan_every`` frames) -> integrate ->
+color fusion (``use_color`` and an RGB frame) -> model maps (splat, or
+the guided / full raycast) -> their pyramid.
 
 The step issues no host sync of its own (no ``.item()``, no Python
 branch on a device value): the reset is a ``torch.where`` over the map,
@@ -14,6 +16,10 @@ ICP's ``eigvalsh`` (see ops/icp.py).
 
 The step does not modify the state it is given: the reset select writes
 new map tensors, into which integration then writes in place.
+
+The renders raycast the map from any pose through expected-depth ranges
+(visible set -> range image -> ranged lockstep march -> shading) and
+make no host sync at all.
 """
 
 from __future__ import annotations
@@ -26,20 +32,27 @@ from ..config import PipelineConfig
 from ..ops.blockmap import (
     BlockMap,
     make_block_map,
+    read_color_nearest,
     select_block_map,
 )
 from ..ops.cuda.integrate import integrate_blocks_cuda
 from ..ops.depth import preprocess_depth
 from ..ops.icp import icp_track
 from ..ops.normals import build_maps_pyramid, resize_points_normals
+from ..ops.rendering import phong_shade, render_confidence_rgb, render_normals_rgb
 from ..ops.splat import splat_model_maps
 from ..ops.tsdf_block import (
     allocate_from_depth,
+    expected_depth_ranges,
     integrate_blocks,
+    integrate_color_blocks,
+    raycast_blocks,
     visible_blocks,
     visible_blocks_incremental,
 )
+from ..ops.tsdf_dense import RaycastResult
 from ..utils.device_info import entry_device
+from ..utils.numerics import true_div
 
 
 class BlockState(NamedTuple):
@@ -49,7 +62,7 @@ class BlockState(NamedTuple):
     tsdf: torch.Tensor
     weight: torch.Tensor
     num_blocks: torch.Tensor
-    color: torch.Tensor          # [1,1,1,1,3] dummy (color waits)
+    color: torch.Tensor          # [C+1,B,B,B,3] or [1,1,1,1,3] dummy
     T_wc: torch.Tensor
     model_points: Tuple[torch.Tensor, ...]
     model_normals: Tuple[torch.Tensor, ...]
@@ -84,21 +97,13 @@ class BlockPipeline:
     default (a ``RuntimeError`` where there is none), ``"cpu"`` by name."""
 
     def __init__(self, cfg: PipelineConfig, device="cuda"):
-        if cfg.raycast.model_maps != "splat":
-            raise NotImplementedError(
-                f"raycast.model_maps={cfg.raycast.model_maps!r}: the port has "
-                "splat model maps only so far (the raycast comes with the "
-                "display port)"
-            )
-        if cfg.tsdf.use_color:
-            raise NotImplementedError("tsdf.use_color: color fusion is not ported yet")
         self.cfg = cfg
         self.device = entry_device(device)
 
     def init(self) -> BlockState:
         cfg = self.cfg
         dev = self.device
-        m = make_block_map(cfg.blockmap, device=dev)
+        m = make_block_map(cfg.blockmap, use_color=cfg.tsdf.use_color, device=dev)
         mp, mn = [], []
         for level in range(cfg.preproc.pyramid_levels):
             cl = cfg.camera.at_level(level)
@@ -121,10 +126,21 @@ class BlockPipeline:
         """Replace the map fields of a state."""
         return state._replace(**m._asdict())
 
-    def step(
-        self, state: BlockState, depth_mm: torch.Tensor
+    def step_rgb(
+        self, state: BlockState, depth_mm: torch.Tensor, rgb: torch.Tensor
     ) -> Tuple[BlockState, BlockStepAux]:
-        """Fuse one depth frame [H, W] (u16 or integer millimetres)."""
+        """Fusion step that also fuses the registered RGB frame [H, W, 3]
+        into the map's color pool (``cfg.tsdf.use_color`` must be on)."""
+        return self.step(state, depth_mm, rgb)
+
+    def step(
+        self,
+        state: BlockState,
+        depth_mm: torch.Tensor,
+        rgb: torch.Tensor | None = None,
+    ) -> Tuple[BlockState, BlockStepAux]:
+        """Fuse one depth frame [H, W] (u16 or integer millimetres); with
+        ``rgb`` and ``cfg.tsdf.use_color`` its color too."""
         cfg = self.cfg
         cam = cfg.camera
         bm = cfg.blockmap
@@ -175,11 +191,29 @@ class BlockPipeline:
         else:
             m, n_vis = integrate_blocks_cuda(m, cam, cfg.tsdf, bm, T_int, raw_eff, vis)
 
-        rc = splat_model_maps(
-            m, cam, cfg.tsdf, bm, T_int, vis,
-            surfels_per_block=cfg.raycast.surfels_per_block,
-            dilate_passes=cfg.raycast.dilate_passes,
-        )
+        if cfg.tsdf.use_color and rgb is not None:
+            m = integrate_color_blocks(
+                m, cam, cfg.tsdf, bm, T_int, raw_eff, rgb.to(self.device), vis
+            )
+
+        # Model maps for the next frame: forward-projected surface voxels
+        # by default, else a sphere march (guided by the depth just fused,
+        # or over the whole frustum).
+        if cfg.raycast.model_maps == "splat":
+            rc = splat_model_maps(
+                m, cam, cfg.tsdf, bm, T_int, vis,
+                surfels_per_block=cfg.raycast.surfels_per_block,
+                dilate_passes=cfg.raycast.dilate_passes,
+            )
+        elif cfg.raycast.guided:
+            rc = raycast_blocks(
+                m, cam, cfg.tsdf, bm, cfg.raycast, T_int,
+                expected_depth=raw_eff,
+                depth_margin=cfg.icp.dist_threshold + 3.0 * cfg.tsdf.trunc_dist,
+                max_steps=cfg.raycast.guided_max_steps,
+            )
+        else:
+            rc = raycast_blocks(m, cam, cfg.tsdf, bm, cfg.raycast, T_int)
         mp, mn = [rc.points], [rc.normals]
         for _ in range(cfg.preproc.pyramid_levels - 1):
             p, n = resize_points_normals(mp[-1], mn[-1])
@@ -208,3 +242,55 @@ class BlockPipeline:
             visible_overflow=vis_overflow,
         )
         return new_state, aux
+
+    # ------------------------------------------------------------------
+    def _free_view_raycast(self, state: BlockState, T_wc: torch.Tensor) -> RaycastResult:
+        """Raycast from an arbitrary pose, marching only the band that the
+        expected-depth ranges of the blocks visible from it leave."""
+        cfg = self.cfg
+        m = state.block_map()
+        vis = visible_blocks(m, cfg.camera, cfg.tsdf, cfg.blockmap, T_wc)
+        ranges = expected_depth_ranges(
+            m, cfg.camera, cfg.tsdf, cfg.blockmap, T_wc, vis,
+            subsample=cfg.raycast.range_subsample,
+        )
+        return raycast_blocks(
+            m, cfg.camera, cfg.tsdf, cfg.blockmap, cfg.raycast, T_wc,
+            range_image=ranges,
+            max_steps=cfg.raycast.ranged_max_steps,
+        )
+
+    def render(self, state: BlockState, T_wc=None) -> torch.Tensor:
+        """Phong-shaded uint8 [H, W, 3] view of the map from ``T_wc`` (a
+        4x4 tensor or array; the tracked pose by default), lit from above
+        and behind the camera."""
+        if T_wc is None:
+            T = state.T_wc
+        else:
+            T = torch.as_tensor(T_wc, dtype=torch.float32).to(self.device)
+        rc = self._free_view_raycast(state, T)
+        eye = T[:3, 3]
+        # eye + (0, -1, -1), the offset built on the device.
+        light = eye - torch.arange(3, device=self.device).clamp(max=1).to(torch.float32)
+        return phong_shade(rc.points, rc.normals, light, eye)
+
+    def render_normals(self, state: BlockState) -> torch.Tensor:
+        """Normal-map view from the tracked pose, uint8 [H, W, 3]."""
+        rc = self._free_view_raycast(state, state.T_wc)
+        return render_normals_rgb(rc.normals)
+
+    def render_confidence(self, state: BlockState) -> torch.Tensor:
+        """Fusion-weight view from the tracked pose: green (confident) to
+        red (fresh), uint8 [H, W, 3]."""
+        rc = self._free_view_raycast(state, state.T_wc)
+        return render_confidence_rgb(rc.confidence, rc.hit, self.cfg.tsdf.max_weight)
+
+    def render_color(self, state: BlockState) -> torch.Tensor:
+        """Fused-color view from the tracked pose, uint8 [H, W, 3]: the
+        color of the voxel nearest each hit (black without a color pool)."""
+        cfg = self.cfg
+        rc = self._free_view_raycast(state, state.T_wc)
+        vox = torch.floor(true_div(rc.points, cfg.tsdf.voxel_size)).to(torch.int32)
+        c = read_color_nearest(state.block_map(), vox, cfg.blockmap.coord_bits)
+        img = torch.where(rc.hit[..., None], c, 0.0)
+        return torch.clamp(img * 255.0, 0.0, 255.0).to(torch.uint8)

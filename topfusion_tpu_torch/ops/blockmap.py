@@ -1,5 +1,5 @@
 """Block-sparse voxel map (port of ``topfusion_tpu/ops/blockmap.py``,
-main-path part).
+without the ``shard`` arguments of the multi-device layer).
 
 Three dense arrays, as in the JAX package:
 
@@ -8,7 +8,9 @@ Three dense arrays, as in the JAX package:
     hash);
   * ``tsdf / weight [CAPACITY + 1, B, B, B]`` — the slot-indexed voxel
     pool, plus one sacrificial row at index ``capacity`` that padded
-    entries route to;
+    entries route to; with ``use_color`` a ``[CAPACITY + 1, B, B, B, 3]``
+    RGB pool in the same storage dtype (the TSDF codec: [0, 1] scaled by
+    32767 for int16), else a ``[1, 1, 1, 1, 3]`` dummy;
   * deterministic allocation: sort -> unique -> probe -> prefix-sum rank
     -> scatter, so slots line up with the JAX package's slot for slot.
 
@@ -84,7 +86,7 @@ class BlockMap(NamedTuple):
     tsdf: torch.Tensor           # [C+1, B, B, B] pool dtype
     weight: torch.Tensor         # [C+1, B, B, B] pool dtype
     num_blocks: torch.Tensor     # () int32
-    color: torch.Tensor          # [1, 1, 1, 1, 3] dummy (color waits)
+    color: torch.Tensor          # [C+1, B, B, B, 3] or [1, 1, 1, 1, 3] dummy
 
     @property
     def capacity(self) -> int:
@@ -132,15 +134,18 @@ def spatial_hash(coords: torch.Tensor, num_buckets: int) -> torch.Tensor:
 
 # ----------------------------------------------------------------- ctor
 def make_block_map(
-    cfg: BlockMapConfig, ways: int = 4, dtype=None, device=None
+    cfg: BlockMapConfig, ways: int = 4, dtype=None, use_color: bool = False,
+    device=None,
 ) -> BlockMap:
     """Empty map: ``capacity`` buckets of ``ways`` ways, and a pool of
-    ``capacity`` live rows plus the sacrificial row."""
+    ``capacity`` live rows plus the sacrificial row (a color pool of the
+    same rows with ``use_color``)."""
     nb = cfg.capacity
     b = cfg.block_size
     if dtype is None:
         dtype = pool_dtype(cfg.pool_dtype)
     rows = (cfg.capacity + 1, b, b, b)
+    color_shape = rows + (3,) if use_color else (1, 1, 1, 1, 3)
     return BlockMap(
         bucket_keys=torch.full((nb, ways), EMPTY_KEY, dtype=torch.int32, device=device),
         bucket_slots=torch.zeros((nb, ways), dtype=torch.int32, device=device),
@@ -148,7 +153,7 @@ def make_block_map(
         tsdf=torch.full(rows, tsdf_init_value(dtype), dtype=dtype, device=device),
         weight=torch.zeros(rows, dtype=dtype, device=device),
         num_blocks=torch.zeros((), dtype=torch.int32, device=device),
-        color=torch.zeros((1, 1, 1, 1, 3), dtype=dtype, device=device),
+        color=torch.zeros(color_shape, dtype=dtype, device=device),
     )
 
 
@@ -176,6 +181,26 @@ def select_block_map(cond: torch.Tensor, m: BlockMap) -> BlockMap:
         torch.where(cond, empty.get(name, 0), a)
         for name, a in zip(BlockMap._fields, m)
     ])
+
+
+def voxel_centers(
+    block_coords: torch.Tensor, block_size: int, voxel_size: float
+) -> torch.Tensor:
+    """World position [V, B, B, B, 3] of every voxel centre of blocks
+    ``block_coords`` [V, 3].  Voxel (x, y, z) of a block sits at pool
+    offset x*B*B + y*B + z."""
+    b = block_size
+    ar = torch.arange(b, dtype=torch.float32, device=block_coords.device)
+    local = torch.stack(
+        [
+            ar.view(1, b, 1, 1).expand(1, b, b, b),
+            ar.view(1, 1, b, 1).expand(1, b, b, b),
+            ar.view(1, 1, 1, b).expand(1, b, b, b),
+        ],
+        dim=-1,
+    )                                                            # [1,B,B,B,3]
+    base = block_coords.to(torch.float32)[:, None, None, None, :] * b
+    return (base + local + 0.5) * voxel_size
 
 
 # ----------------------------------------------------------------- lookup
@@ -319,3 +344,73 @@ def allocate(
         touched_slots=touched,
         touched_mask=touched >= 0,
     )
+
+
+# ----------------------------------------------------------------- voxel reads
+def _split_voxel(m: BlockMap, voxel_coords: torch.Tensor, bits: int):
+    """Global integer voxel coords (..., 3) -> (pool row, local x, y, z,
+    found): the row is 0 where the block is missing.  Floor division, so
+    negative coordinates land in the block below, not the one toward 0."""
+    bsz = m.block_size
+    block = torch.div(voxel_coords, bsz, rounding_mode="floor")
+    local = (voxel_coords - block * bsz).long()
+    slot, found = lookup(m, block, bits)
+    sl = torch.where(found, slot, 0).long()
+    return sl, local[..., 0], local[..., 1], local[..., 2], found
+
+
+def read_voxels_nearest(
+    m: BlockMap, voxel_coords: torch.Tensor, bits: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Global integer voxel coords (..., 3) -> (tsdf, weight, block_found),
+    semantic float32 whatever the pool dtype.  Unallocated space reads as
+    free (tsdf = 1, w = 0)."""
+    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits)
+    t = decode_tsdf(m.tsdf[sl, lx, ly, lz])
+    w = decode_weight(m.weight[sl, lx, ly, lz])
+    return torch.where(found, t, 1.0), torch.where(found, w, 0.0), found
+
+
+def read_color_nearest(
+    m: BlockMap, voxel_coords: torch.Tensor, bits: int
+) -> torch.Tensor:
+    """Global integer voxel coords (..., 3) -> RGB in [0, 1]; unallocated
+    space, and a map built without ``use_color``, read black."""
+    if m.color.shape[0] <= 1:
+        return torch.zeros(
+            voxel_coords.shape[:-1] + (3,), dtype=torch.float32,
+            device=voxel_coords.device,
+        )
+    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits)
+    c = decode_tsdf(m.color[sl, lx, ly, lz])
+    return torch.where(found[..., None], c, 0.0)
+
+
+def sample_trilinear(
+    m: BlockMap, pv: torch.Tensor, bits: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trilinear (tsdf, min-weight) at fractional global voxel coords,
+    crossing block borders through a lookup per corner.  The eight terms
+    are added in the JAX package's order (x outermost, z innermost)."""
+    p = pv - 0.5
+    base_f = torch.floor(p)
+    base = base_f.to(torch.int32)
+    frac = p - base_f
+    fx, fy, fz = frac[..., 0], frac[..., 1], frac[..., 2]
+    tsdf = torch.zeros(pv.shape[:-1], dtype=torch.float32, device=pv.device)
+    wmin = torch.full_like(tsdf, float("inf"))
+    for cx in (0, 1):
+        for cy in (0, 1):
+            for cz in (0, 1):
+                corner = torch.stack(
+                    [base[..., 0] + cx, base[..., 1] + cy, base[..., 2] + cz], dim=-1
+                )
+                t, w, _ = read_voxels_nearest(m, corner, bits)
+                wgt = (
+                    (fx if cx else 1.0 - fx)
+                    * (fy if cy else 1.0 - fy)
+                    * (fz if cz else 1.0 - fz)
+                )
+                tsdf = tsdf + wgt * t
+                wmin = torch.minimum(wmin, w)
+    return tsdf, wmin

@@ -1,7 +1,9 @@
-"""Block-sparse TSDF, main-path part (port of
-``topfusion_tpu/ops/tsdf_block.py``): allocation from depth, the visible
-set (full scan and aged), and the plain gather/fuse/scatter integration
-that the CUDA kernel (``ops/cuda/integrate.py``) is held against.
+"""Block-sparse TSDF (port of ``topfusion_tpu/ops/tsdf_block.py``,
+without the ``shard`` arguments of the multi-device layer): allocation
+from depth, the visible set (full scan and aged), the plain
+gather/fuse/scatter integration that the CUDA kernel
+(``ops/cuda/integrate.py``) is held against, color fusion, expected-depth
+ranges and the lockstep raycast through the hashed map.
 
 Constants that the JAX package computes in float32 from Python floats
 (the block radius, the frustum bounds widened by it, the allocation
@@ -16,9 +18,10 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from ..config import BlockMapConfig, CameraConfig, TSDFConfig
+from ..config import BlockMapConfig, CameraConfig, RaycastConfig, TSDFConfig
 from ..geometry.camera import pixel_grid, project
-from ..geometry.se3 import se3_inverse, transform_points
+from ..geometry.se3 import rotate_vectors, se3_inverse, transform_points
+from ..utils.numerics import linspace01, norm3, true_div
 from .blockmap import (
     BlockMap,
     allocate,
@@ -26,27 +29,18 @@ from .blockmap import (
     decode_weight,
     encode_tsdf,
     encode_weight,
+    read_voxels_nearest,
+    sample_trilinear,
+    voxel_centers,
 )
-from ..utils.numerics import true_div
+from .normals import normals_from_point_map
+from .tsdf_dense import RaycastResult
 
 
 def _block_radius(tsdf_cfg: TSDFConfig, bm_cfg: BlockMapConfig) -> float:
     """float32(0.5 * sqrt(3) * block_metric), as a Python float."""
     block_metric = np.float32(bm_cfg.block_size * tsdf_cfg.voxel_size)
     return float(np.float32(0.5) * np.sqrt(np.float32(3.0)) * block_metric)
-
-
-def _linspace01(k: int, device) -> torch.Tensor:
-    """The float32 values the JAX package's ``jnp.linspace(0, 1, k)``
-    takes: ``i * float32(1/(k-1))`` for i < k-1 (XLA multiplies by the
-    reciprocal), then exactly 1.  ``torch.linspace`` and a true division
-    are each an ulp off for some k (4 and 7).  Built on the device, since
-    copying a host array there would synchronize."""
-    one = torch.ones(1, dtype=torch.float32, device=device)
-    if k == 1:
-        return one * 0.0
-    i = torch.arange(k - 1, dtype=torch.float32, device=device)
-    return torch.cat([i * (1.0 / (k - 1)), one])
 
 
 # ----------------------------------------------------------------- alloc
@@ -85,7 +79,7 @@ def allocate_from_depth(
     lam0 = d * (1.0 - rel)
     lam1 = d * (1.0 + rel)
 
-    fracs = _linspace01(k, depth.device)
+    fracs = linspace01(k, depth.device)
     lam = lam0[..., None] + (lam1 - lam0)[..., None] * fracs  # [h, w, k]
     pts_cam = ray[..., None, :] * lam[..., None]              # [h, w, k, 3]
     pts_w = transform_points(T_wc, pts_cam)
@@ -252,6 +246,26 @@ def visible_blocks_incremental(
 
 
 # ----------------------------------------------------------------- integrate
+def _project_block_voxels(coords, cam, tsdf_cfg, bm_cfg, T_wc, image_shape):
+    """Every voxel centre of blocks ``coords`` [V, 3] projected into an
+    image of ``image_shape`` = (h, w) taken by the camera at ``T_wc``:
+    (z, in_bounds, row, column), each [V, B, B, B];
+    row and column are clamped into the image (int64, for indexing) and
+    ``in_bounds`` says whether the rounded pixel was inside it and z
+    inside the frustum."""
+    h, w = image_shape
+    pw = voxel_centers(coords, bm_cfg.block_size, tsdf_cfg.voxel_size)
+    pc = transform_points(se3_inverse(T_wc), pw)
+    uv, z = project(cam, pc)
+    u = torch.round(uv[..., 0]).to(torch.int32)
+    v = torch.round(uv[..., 1]).to(torch.int32)
+    in_bounds = (
+        (u >= 0) & (u < w) & (v >= 0) & (v < h)
+        & (z >= tsdf_cfg.view_frustum_min) & (z <= tsdf_cfg.view_frustum_max)
+    )
+    return z, in_bounds, torch.clamp(v, 0, h - 1).long(), torch.clamp(u, 0, w - 1).long()
+
+
 def integrate_blocks(
     m: BlockMap,
     cam: CameraConfig,
@@ -277,37 +291,15 @@ def integrate_blocks(
     if vis is None:
         vis = visible_blocks(m, cam, tsdf_cfg, bm_cfg, T_wc)
     slots, coords, mask = vis
-    bsz = bm_cfg.block_size
     mu = tsdf_cfg.trunc_dist
-    voxel = tsdf_cfg.voxel_size
-    h, w = depth.shape
-    dev = depth.device
 
     safe_slots = torch.where(mask, slots, m.capacity).long()
     tsdf_blk = decode_tsdf(m.tsdf[safe_slots])          # [V, B, B, B]
     w_blk = decode_weight(m.weight[safe_slots])
 
-    # World position of every voxel centre; voxel (x, y, z) of a block
-    # sits at pool offset x*B*B + y*B + z.
-    ar = torch.arange(bsz, dtype=torch.float32, device=dev)
-    lx = ar.view(1, bsz, 1, 1).expand(1, bsz, bsz, bsz)
-    ly = ar.view(1, 1, bsz, 1).expand(1, bsz, bsz, bsz)
-    lz = ar.view(1, 1, 1, bsz).expand(1, bsz, bsz, bsz)
-    local = torch.stack([lx, ly, lz], dim=-1)                     # [1,B,B,B,3]
-    base = coords.to(torch.float32)[:, None, None, None, :] * bsz
-    pw = (base + local + 0.5) * voxel
-
-    T_cw = se3_inverse(T_wc)
-    pc = transform_points(T_cw, pw)
-    uv, z = project(cam, pc)
-    u = torch.round(uv[..., 0]).to(torch.int32)
-    v = torch.round(uv[..., 1]).to(torch.int32)
-    in_bounds = (
-        (u >= 0) & (u < w) & (v >= 0) & (v < h)
-        & (z >= tsdf_cfg.view_frustum_min) & (z <= tsdf_cfg.view_frustum_max)
+    z, in_bounds, vc, uc = _project_block_voxels(
+        coords, cam, tsdf_cfg, bm_cfg, T_wc, depth.shape
     )
-    uc = torch.clamp(u, 0, w - 1).long()
-    vc = torch.clamp(v, 0, h - 1).long()
     d = depth[vc, uc]
 
     eta = d - z
@@ -325,3 +317,243 @@ def integrate_blocks(
     m.tsdf[safe_slots] = encode_tsdf(tsdf_out, m.tsdf.dtype)
     m.weight[safe_slots] = encode_weight(w_out, m.weight.dtype)
     return m, torch.sum(mask, dtype=torch.int32)
+
+
+# ----------------------------------------------------------------- color
+def integrate_color_blocks(
+    m: BlockMap,
+    cam: CameraConfig,
+    tsdf_cfg: TSDFConfig,
+    bm_cfg: BlockMapConfig,
+    T_wc: torch.Tensor,
+    depth: torch.Tensor,
+    rgb: torch.Tensor,
+    vis: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+) -> BlockMap:
+    """Fuse an RGB image [H, W, 3] (uint8, or float in [0, 1]) into the
+    visible blocks' color pool: a running average with the fusion weights,
+    taken only by voxels within mu/4 of the observed surface.  A separate
+    gather/fuse/scatter pass after the depth integrator, which stays
+    color-agnostic; it reads the weights that pass left behind.
+
+    The color pool is updated IN PLACE, like the TSDF pool.  Padded
+    entries gather row 0 and scatter the sacrificial row, as in the JAX
+    package.
+    """
+    slots, coords, mask = vis
+    mu = tsdf_cfg.trunc_dist
+
+    safe_slots = torch.where(mask, slots, 0).long()
+    w_blk = decode_weight(m.weight[safe_slots])[..., None]
+    c_blk = decode_tsdf(m.color[safe_slots])            # [V, B, B, B, 3]
+
+    z, in_bounds, vc, uc = _project_block_voxels(
+        coords, cam, tsdf_cfg, bm_cfg, T_wc, depth.shape
+    )
+    d = depth[vc, uc]
+    c_obs = rgb[vc, uc].to(torch.float32)
+    if rgb.dtype == torch.uint8:
+        c_obs = true_div(c_obs, 255.0)
+
+    eta = d - z
+    update = (
+        in_bounds & (d > 0.0) & (torch.abs(eta) < mu * 0.25)
+        & mask[:, None, None, None]
+    )
+    fused = (c_blk * w_blk + c_obs) / (w_blk + 1.0)
+    c_out = torch.where(update[..., None], fused, c_blk)
+
+    scatter_slots = torch.where(mask, slots, m.capacity).long()
+    m.color[scatter_slots] = encode_tsdf(c_out, m.color.dtype)
+    return m
+
+
+# ----------------------------------------------------------------- ranges
+def expected_depth_ranges(
+    m: BlockMap,
+    cam: CameraConfig,
+    tsdf_cfg: TSDFConfig,
+    bm_cfg: BlockMapConfig,
+    T_wc: torch.Tensor,
+    vis: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    subsample: int = 8,
+    chunk: int = 1024,
+) -> torch.Tensor:
+    """Per-pixel raycast depth bounds from the visible blocks.
+
+    Every cell of the 1/``subsample`` image takes the min and max camera
+    depth over the visible blocks whose projected bounding box covers it:
+    a masked [cells, chunk] reduction per chunk of blocks.  Returns
+    ``[ceil(h/sub), ceil(w/sub), 2]`` float32 (zmin, zmax) in metres;
+    cells no block projects to carry (frustum_max, frustum_min), an empty
+    band that kills the ray at once in :func:`raycast_blocks`.
+    """
+    _slots, coords, mask = vis
+    block_metric = bm_cfg.block_size * tsdf_cfg.voxel_size
+    sub = subsample
+    ch, cw = -(-cam.height // sub), -(-cam.width // sub)
+    fmin, fmax = tsdf_cfg.view_frustum_min, tsdf_cfg.view_frustum_max
+    dev = coords.device
+
+    # The 8 corners of every visible block, in camera space (x outermost).
+    i = torch.arange(8, device=dev)
+    offs = torch.stack([(i >> 2) & 1, (i >> 1) & 1, i & 1], dim=-1).to(torch.float32)
+    corners_w = (coords.to(torch.float32)[:, None, :] + offs) * block_metric
+    pc = transform_points(se3_inverse(T_wc), corners_w)          # [V, 8, 3]
+    zc = pc[..., 2]
+    # A corner at or behind the image plane makes the projected box
+    # unbounded: such blocks cover the whole image.
+    degenerate = torch.any(zc < 0.5 * fmin, dim=1)
+    uv, _ = project(cam, pc)
+    u, v = uv[..., 0], uv[..., 1]
+
+    def cell(x, last):
+        # Clamped as a float: a float beyond int32 converts differently
+        # on the CPU and on the card.
+        return torch.clamp(torch.floor(true_div(x, sub)), 0, last).to(torch.int32)
+
+    cu0 = torch.where(degenerate, 0, cell(torch.amin(u, dim=1), cw - 1))
+    cu1 = torch.where(degenerate, cw - 1, cell(torch.amax(u, dim=1), cw - 1))
+    cv0 = torch.where(degenerate, 0, cell(torch.amin(v, dim=1), ch - 1))
+    cv1 = torch.where(degenerate, ch - 1, cell(torch.amax(v, dim=1), ch - 1))
+    bz0 = torch.clamp(torch.amin(zc, dim=1), min=fmin)
+    bz1 = torch.clamp(torch.amax(zc, dim=1), max=fmax)
+
+    ci = torch.arange(ch, dtype=torch.int32, device=dev).view(ch, 1, 1)
+    cj = torch.arange(cw, dtype=torch.int32, device=dev).view(1, cw, 1)
+    zlo = torch.full((ch, cw), fmax, dtype=torch.float32, device=dev)
+    zhi = torch.full((ch, cw), fmin, dtype=torch.float32, device=dev)
+    for s in range(0, coords.shape[0], chunk):
+        e = s + chunk
+        cover = (
+            (ci >= cv0[s:e]) & (ci <= cv1[s:e]) & (cj >= cu0[s:e]) & (cj <= cu1[s:e])
+            & mask[s:e]
+        )  # [ch, cw, chunk]
+        zlo = torch.minimum(zlo, torch.amin(torch.where(cover, bz0[s:e], fmax), dim=-1))
+        zhi = torch.maximum(zhi, torch.amax(torch.where(cover, bz1[s:e], fmin), dim=-1))
+    return torch.stack([zlo, zhi], dim=-1)
+
+
+# ----------------------------------------------------------------- raycast
+def raycast_blocks(
+    m: BlockMap,
+    cam: CameraConfig,
+    tsdf_cfg: TSDFConfig,
+    bm_cfg: BlockMapConfig,
+    ray_cfg: RaycastConfig,
+    T_wc: torch.Tensor,
+    expected_depth: torch.Tensor | None = None,
+    depth_margin: float = 0.16,
+    max_steps: int | None = None,
+    weight_gate: str = "trilinear",
+    range_image: torch.Tensor | None = None,
+    range_subsample: int | None = None,
+) -> RaycastResult:
+    """Sphere-trace every pixel through the sparse map, in lockstep: all
+    rays take ``max_steps`` steps (``ray_cfg.max_steps`` by default), each
+    one block lookup; a miss advances a full block width.  No step reads
+    a value back to the host, so the march never ends early.
+
+    ``expected_depth`` (the depth image just fused at this pose) starts
+    each ray at ``expected_depth - depth_margin`` and stops it at
+    ``+ depth_margin``; pixels without valid depth keep the full range.
+    ``range_image`` is the free-view analogue, the (zmin, zmax) image of
+    :func:`expected_depth_ranges`: rays start at their cell's zmin and
+    die past zmax, so a small ``max_steps`` covers the occupied band.
+    ``weight_gate="nearest"`` accepts a hit on the nearest voxel's weight
+    instead of the trilinear stencil's minimum.
+    """
+    h, w = cam.height, cam.width
+    mu = tsdf_cfg.trunc_dist
+    voxel = tsdf_cfg.voxel_size
+    bits = bm_cfg.coord_bits
+    block_metric = bm_cfg.block_size * voxel
+    dev = T_wc.device
+
+    uv = pixel_grid(cam, device=dev)
+    dirs_cam = torch.stack(
+        [
+            true_div(uv[..., 0] - cam.cx, cam.fx),
+            true_div(uv[..., 1] - cam.cy, cam.fy),
+            torch.ones((h, w), dtype=torch.float32, device=dev),
+        ],
+        dim=-1,
+    )
+    o_w = T_wc[:3, 3]
+    dirs_w = rotate_vectors(T_wc, dirs_cam)
+    dir_norm = norm3(dirs_w)
+
+    t_min = torch.full((h, w), tsdf_cfg.view_frustum_min, dtype=torch.float32, device=dev)
+    t_max = torch.full((h, w), tsdf_cfg.view_frustum_max, dtype=torch.float32, device=dev)
+    if range_image is not None:
+        sub = range_subsample or ray_cfg.range_subsample
+        ch, cw = range_image.shape[:2]
+        full = range_image[:, None, :, None, :].expand(ch, sub, cw, sub, 2)
+        full = full.reshape(ch * sub, cw * sub, 2)[:h, :w]
+        # One-voxel slack: trilinear refinement may probe just outside
+        # the corner-derived bounds.
+        t_min = torch.maximum(t_min, full[..., 0] - voxel)
+        t_max = torch.minimum(t_max, full[..., 1] + voxel)
+        # Empty cells carry zlo > zhi: pin them to a band that is dead at
+        # once, with finite arithmetic.
+        t_min = torch.minimum(t_min, t_max)
+    if expected_depth is not None:
+        dvalid = expected_depth > 0.0
+        t_min = torch.where(
+            dvalid, torch.maximum(t_min, expected_depth - depth_margin), t_min
+        )
+        t_max = torch.where(
+            dvalid, torch.minimum(t_max, expected_depth + depth_margin), t_max
+        )
+    n_steps = max_steps if max_steps is not None else ray_cfg.max_steps
+    min_step = ray_cfg.min_step_voxels * voxel
+
+    def to_voxel(t):
+        """Fractional global voxel coords of the ray points at ``t``."""
+        return true_div(o_w + t[..., None] * dirs_w, voxel)
+
+    t = prev_t = t_min
+    prev_sdf = torch.ones((h, w), dtype=torch.float32, device=dev)
+    t_hit = torch.zeros((h, w), dtype=torch.float32, device=dev)
+    alive = torch.ones((h, w), dtype=torch.bool, device=dev)
+    found = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    for _ in range(n_steps):
+        vox = torch.floor(to_voxel(t)).to(torch.int32)
+        sdf, _wt, blk_found = read_voxels_nearest(m, vox, bits)
+        crossing = alive & blk_found & (prev_sdf > 0.0) & (sdf <= 0.0)
+        diff = prev_sdf - sdf
+        denom = torch.where(torch.abs(diff) > 1e-12, diff, 1.0)
+        t_cross = prev_t + (t - prev_t) * (prev_sdf / denom)
+        t_hit = torch.where(crossing & ~found, t_cross, t_hit)
+        found = found | crossing
+        # Miss -> skip a block width; hit -> sphere step on the sampled sdf.
+        step = torch.where(
+            blk_found, torch.clamp(sdf * mu, min=min_step), block_metric
+        ) / dir_norm
+        t_next = t + step
+        alive = alive & ~found & (t_next < t_max)
+        # prev_sdf only means something inside allocated space: entering a
+        # block from unallocated space starts a fresh sign history.
+        prev_sdf = torch.where(blk_found, sdf, 1.0)
+        prev_t, t = t, t_next
+
+    for _ in range(ray_cfg.refine_steps):
+        sdf_tri, _ = sample_trilinear(m, to_voxel(t_hit), bits)
+        t_hit = t_hit + sdf_tri * mu / dir_norm
+
+    if weight_gate == "nearest":
+        vox_hit = torch.floor(to_voxel(t_hit)).to(torch.int32)
+        _, w_hit, _ = read_voxels_nearest(m, vox_hit, bits)
+    else:
+        _, w_hit = sample_trilinear(m, to_voxel(t_hit), bits)
+    hit = found & (w_hit > 0.0) & (t_hit > 0.0)
+
+    p_w = o_w + t_hit[..., None] * dirs_w
+    points = torch.where(hit[..., None], p_w, 0.0)
+    return RaycastResult(
+        points=points,
+        normals=normals_from_point_map(points, o_w),
+        hit=hit,
+        depth=torch.where(hit, t_hit, 0.0),
+        confidence=torch.where(hit, w_hit, 0.0),
+    )

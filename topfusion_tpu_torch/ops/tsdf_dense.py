@@ -1,6 +1,7 @@
 """Dense-volume module of the port.  Only ``RaycastResult`` is here so
-far: the splat model maps return it.  The dense volume itself
-(``topfusion_tpu/ops/tsdf_dense.py``) is not ported yet."""
+far: the splat model maps and the hashed-map raycast return it.  The
+dense volume itself (``topfusion_tpu/ops/tsdf_dense.py``) is not ported
+yet."""
 
 from __future__ import annotations
 
