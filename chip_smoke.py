@@ -44,10 +44,31 @@ Phases, each of which must pass (else the exit code is 1):
   9. point cloud: ``extract_pointcloud_blocks`` on the fused map, the
      points held against the scene's zero level set (99% within two
      voxels, the median within half a voxel), and a PLY file written and
-     read back.
+     read back;
+ 10. dense: the orbit through ``DensePipeline`` at VGA over the package's
+     default 256^3 volume of 5 mm voxels (2 x 64 MiB of float32), with the
+     full 192-step raycast, with the guided 24-step raycast, and through
+     ``step_rgb`` with a 192 MiB color grid: every frame tracked, no
+     reset, ATE < 12 mm on each, ``step_rgb`` poses bit-identical to the
+     depth-only run; ``render`` and ``render_color`` images; the raycast
+     depth against the scene's exact depth; ``extract_pointcloud_dense``
+     held against the scene's surface as in phase 9; ms per frame, device
+     operations and device time per frame, ms per render, peak memory;
+ 11. out-of-core sweep: the bench configuration on a corridor, 40 frames
+     out (pitched camera, 6 cm steps) and back, first uncapped (2^16
+     blocks) to count the scene's blocks N, then with a pool capped at
+     the largest power of two below N / 1.2 and a ``HostBlockCache``: every
+     frame tracked, no block dropped, blocks on the host, restores on the
+     return leg, live + host blocks >= 0.95 N, ATE <= 1.2 x the uncapped
+     run's + 0.2 mm, one kernel launch per frame; blocks evicted and
+     restored, ms and bytes over PCIe per evict round and restore batch,
+     frames/s with and without the cache.
 
-The kernel's launch count is set to 0 before each of the three stepping
-paths (4, 7, 8) and read after it.  The last lines are one JSON line of
+The kernel's launch count is set to 0 before each of the four stepping
+paths through ``BlockPipeline`` (4, 7, 8, and the capped sweep of 11) and
+read after it; the dense path launches no hand-written kernel (its
+integrate is XLA in the JAX package and plain PyTorch here).  What each
+phase took is printed.  The last lines are one JSON line of
 kernel results, the nvidia-smi name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA,
 or without the package beside it, the script exits non-zero and prints
@@ -92,6 +113,15 @@ COLOR_PASSES = 2  # timed passes over the orbit through step_rgb
 # pass already raised), so 8 frames leave about a ninth of the albedo
 # unaccounted for.  Measured 0.135, 0.096, 0.099 (NVIDIA H100 80GB HBM3).
 COLOR_MAE_LIMIT = 0.15
+DENSE_DIMS = (256, 256, 256)  # the package's default volume (config.py, README.md)
+DENSE_ORIGIN = (-0.64, -0.64, 0.4)  # holds the scene: its back wall is at z = 1.6
+DENSE_PASSES = 1  # timed passes over the orbit through the dense step
+SWEEP_FWD = (40, 56, 72)  # forward frames of the sweep; lengthened if the scene is too small
+SWEEP_STEP_M = 0.06
+SWEEP_PITCH_RAD = 0.35  # the floor and box tops stay within range down the corridor
+SWEEP_FRUSTUM_MAX_M = 2.0  # matches the depth truncation: bounds the per-frame working set
+SWEEP_EVICT_BATCH = 1024
+SWEEP_RESTORE_BATCH = 512
 
 
 def bench_config(pool_dtype: str = "int16"):
@@ -677,7 +707,7 @@ def raycast_model_maps_phase(frames, poses, device) -> int:
     return launches
 
 
-def color_phase(frames, poses, depth_only_est, device) -> int:
+def color_phase(frames, rgbs, poses, depth_only_est, device) -> int:
     """Phase 8.  Returns the kernel launches of the run."""
     import torch
 
@@ -688,8 +718,6 @@ def color_phase(frames, poses, depth_only_est, device) -> int:
     cfg = bench_config("int16")
     cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(cfg.tsdf, use_color=True))
     scene = SyntheticScene()
-    rgbs = [scene.render_rgb(cfg.camera, torch.as_tensor(T, dtype=torch.float32, device=device))
-            for T in poses]
     pipe = BlockPipeline(cfg, device)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -785,6 +813,306 @@ def pointcloud_phase(pipe, state) -> None:
             lambda: extract_pointcloud_blocks(m, cfg.tsdf, cfg.blockmap), repeats=3)
 
 
+def dense_config(guided: bool = False, use_color: bool = False):
+    """The bench configuration over the default dense volume."""
+    from topfusion_tpu_torch.config import DenseVolumeConfig
+
+    cfg = bench_config()
+    return dataclasses.replace(
+        cfg,
+        dense=DenseVolumeConfig(dims=DENSE_DIMS, origin=DENSE_ORIGIN),
+        tsdf=dataclasses.replace(cfg.tsdf, use_color=use_color),
+        raycast=dataclasses.replace(cfg.raycast, guided=guided),
+    )
+
+
+def timed_passes(pipe, state, frames, passes, rgbs=None):
+    """ms per frame on the host's clock over ``passes`` synced passes
+    (``state`` comes from a pass that warmed the card), then one profiled
+    pass: (ms/frame, device operations per frame, device ms per frame,
+    peak memory in bytes)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(passes):
+        state, _, _ = run(pipe, state, frames, rgbs)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1000 / (passes * len(frames))
+    peak = torch.cuda.max_memory_allocated()
+    ops, device_ms, _, _ = profiled(lambda: run(pipe, state, frames, rgbs))
+    return ms, ops / len(frames), device_ms / len(frames), peak
+
+
+def dense_phase(frames, rgbs, poses, device) -> None:
+    """Phase 10."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch import DensePipeline
+    from topfusion_tpu_torch.io.synthetic import SyntheticScene
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.ops.pointcloud import extract_pointcloud_dense
+    from topfusion_tpu_torch.ops.tsdf_dense import raycast_dense
+
+    scene = SyntheticScene()
+    results = {}
+    for name, guided, color in (("full march", False, False), ("guided", True, False),
+                                ("step_rgb", False, True)):
+        cfg = dense_config(guided, color)
+        pipe = DensePipeline(cfg, device)
+        c = rgbs if color else None
+        state, est, auxes = run(pipe, pipe.init(), frames, c)
+        torch.cuda.synchronize()
+        est_np = [T.cpu().numpy() for T in est]
+        ate = ate_rmse(est_np, poses, align=False)
+        inl = [int(a.num_inliers) for a in auxes[1:]]
+        ms, ops, device_ms, peak = timed_passes(pipe, state, frames, DENSE_PASSES, c)
+        print(f"dense {name}: {len(frames)} frames, ATE {ate * 1000:.3f} mm, resets "
+              f"{int(state.resets)}, inliers {min(inl)}-{max(inl)}; {ms:.2f} ms/frame "
+              f"({1000 / ms:.2f} frames/s) over {DENSE_PASSES} passes; profiled pass: "
+              f"{ops:.1f} device ops/frame, device time {device_ms:.3f} ms/frame; peak memory "
+              f"of the passes {peak / 2**20:.1f} MiB")
+        check(all(bool(a.ok) for a in auxes), f"dense {name}: a frame failed to track")
+        check(int(state.resets) == 0 and int(state.frame) == len(frames),
+              f"dense {name}: the pipeline reset")
+        check(ate < ATE_LIMIT_M, f"dense {name}: ATE {ate} m >= {ATE_LIMIT_M} m")
+        check(all(np.isfinite(T).all() for T in est_np), f"dense {name}: non-finite pose")
+        check(all(bool(torch.isfinite(p).all()) for p in state.model_points),
+              f"dense {name}: non-finite model map")
+        results[name] = (cfg, pipe, state, est)
+
+    cfg, pipe, state, est = results["full march"]
+    _, cpipe, cstate, cest = results["step_rgb"]
+    same = all(torch.equal(a, b) for a, b in zip(est, cest))
+    top = float(cstate.color.max())
+    print(f"  step_rgb poses bit-identical to the depth-only run: {same}; color grid "
+          f"{tuple(cstate.color.shape)} = {cstate.color.numel() * 4 / 2**20:.1f} MiB, max {top:.3f}; "
+          f"volume {tuple(state.tsdf.shape)} = 2 x {state.tsdf.numel() * 4 / 2**20:.1f} MiB")
+    check(same, "dense: color fusion changed the trajectory")
+    check(top > 0.5, f"dense: the color grid holds no color (max {top})")
+
+    cam, voxel = cfg.camera, cfg.tsdf.voxel_size
+    shape = (cam.height, cam.width, 3)
+    for what, img in (("render", pipe.render(state)), ("render_color", cpipe.render_color(cstate))):
+        std = float(img.to(torch.float32).std())
+        print(f"  dense {what}: {tuple(img.shape)} {img.dtype}, std {std:.2f}, "
+              f"lit share {float((img.sum(-1) > 0).float().mean()):.4f}")
+        check(img.dtype == torch.uint8 and tuple(img.shape) == shape and img.device == device,
+              f"dense {what}: not a uint8 {shape} image on the card")
+        check(std > 5, f"dense {what}: a constant image")
+
+    # The raycast at the tracked pose against the scene's exact depth.
+    T = state.T_wc
+    rc = raycast_dense(state.volume(), cam, cfg.tsdf, cfg.dense, cfg.raycast, T)
+    gt = scene.render_depth(cam, T)
+    mask = rc.hit & (gt > 0) & (gt < 1.5)
+    err = torch.abs(rc.depth - gt)[mask]
+    cover, med = float(mask.float().mean()), float(err.median())
+    print(f"  dense raycast at the tracked pose: hit share {float(rc.hit.float().mean()):.4f}, "
+          f"{cover:.4f} of the image compared with the exact depth, median |error| "
+          f"{med * 1000:.3f} mm ({med / voxel:.3f} voxels)")
+    check(cover > 0.3, f"the dense raycast covers {cover} of the image")
+    check(med < 2 * voxel, f"median dense raycast depth error {med} m >= 2 voxels")
+    check(bool(torch.isfinite(rc.points).all()) and bool(torch.isfinite(rc.normals).all()),
+          "non-finite dense raycast")
+
+    pc = extract_pointcloud_dense(state.volume(), cfg.tsdf, cfg.dense)
+    torch.cuda.synchronize()
+    count = int(pc.count)
+    check(count > 0 and int(pc.valid.sum()) == count, f"dense point cloud: count {count}")
+    p = pc.points[pc.valid]
+    d = scene.sdf(p).abs()
+    near = float((d < voxel).float().mean())
+    far = float((d < 2 * voxel).float().mean())
+    print(f"  dense point cloud: {count} points of {pc.points.shape[0]}; |sdf| median "
+          f"{float(d.median()) * 1000:.3f} mm, within one voxel ({voxel * 1000:.1f} mm) "
+          f"{near:.5f}, within two {far:.5f}")
+    check(bool(torch.isfinite(p).all()), "dense point cloud: non-finite point")
+    check(far >= 0.99, f"only {far} of the dense points lie within two voxels of the surface")
+    check(float(d.median()) < 0.5 * voxel, "the median dense point is half a voxel off the surface")
+
+    measure("dense render", lambda: pipe.render(state), repeats=3)
+    measure("dense render_color", lambda: cpipe.render_color(cstate), repeats=3)
+    measure("extract_pointcloud_dense",
+            lambda: extract_pointcloud_dense(state.volume(), cfg.tsdf, cfg.dense), repeats=3)
+
+
+def sweep_config(capacity: int):
+    """The bench configuration with the frustum cut to the depth
+    truncation and a pool of ``capacity`` blocks."""
+    cfg = bench_config("int16")
+    return dataclasses.replace(
+        cfg,
+        tsdf=dataclasses.replace(cfg.tsdf, view_frustum_max=SWEEP_FRUSTUM_MAX_M),
+        blockmap=dataclasses.replace(cfg.blockmap, capacity=capacity),
+    )
+
+
+def sweep_frames(n_fwd: int, device):
+    """(ground truth relative to the first pose, depth frames) of the
+    corridor sweep: ``n_fwd`` frames out and back the same way."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.geometry.se3 import se3_exp
+    from topfusion_tpu_torch.io.synthetic import corridor_scene, sweep_trajectory
+
+    cam = bench_config().camera
+    pitch = se3_exp(torch.tensor([SWEEP_PITCH_RAD, 0, 0, 0, 0, 0])).numpy()
+    scene = corridor_scene(length_m=9.0, box_every=0.35)
+    fwd = [T @ pitch for T in sweep_trajectory(n_fwd, step_m=SWEEP_STEP_M)]
+    out = [scene.render_depth_mm(cam, torch.as_tensor(T, dtype=torch.float32, device=device))
+           for T in fwd]
+    back = list(range(n_fwd)) + list(range(n_fwd - 1))[::-1]
+    inv0 = np.linalg.inv(fwd[0].astype(np.float64))
+    return [(inv0 @ fwd[i]).astype(np.float32) for i in back], [out[i] for i in back]
+
+
+def run_sweep(cfg, frames, device, cache=None) -> dict:
+    """The loop of the JAX package's out-of-core test: restore before each
+    step from the last pose, evict after it, and carry the aged visible
+    list through every compaction.  Times are on the host's clock around
+    device syncs."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+
+    pipe = BlockPipeline(cfg, device)
+    state = pipe.init()
+    r = dict(poses=[], auxes=[], restored=[], evicted=[], restore_ms=[], evict_ms=[])
+    torch.cuda.synchronize()
+    t_start = time.perf_counter()
+    for f in frames:
+        if cache is not None:
+            n0 = cache.n_host_blocks
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            T_pred = r["poses"][-1] if r["poses"] else np.eye(4, dtype=np.float32)
+            state = pipe.write_map(state, cache.before_step(state.block_map(), T_pred))
+            torch.cuda.synchronize()
+            r["restore_ms"].append((time.perf_counter() - t0) * 1000)
+            r["restored"].append(n0 - cache.n_host_blocks)
+        state, aux = pipe.step(state, f)
+        r["poses"].append(state.T_wc.cpu().numpy())
+        r["auxes"].append(aux)
+        if cache is not None:
+            n0 = cache.n_host_blocks
+            t0 = time.perf_counter()
+            m, remap = cache.after_step(state.block_map(), state.vis_slots)
+            state = pipe.write_map(state, m)
+            if remap is not None:
+                vs = state.vis_slots
+                state = state._replace(
+                    vis_slots=torch.where(vs >= 0, remap[vs.clamp(min=0).long()], -1))
+            torch.cuda.synchronize()
+            r["evict_ms"].append((time.perf_counter() - t0) * 1000)
+            r["evicted"].append(cache.n_host_blocks - n0)
+    torch.cuda.synchronize()
+    r["seconds"] = time.perf_counter() - t_start
+    r["state"] = state
+    return r
+
+
+def swap_phase(device) -> int:
+    """Phase 11.  Returns the kernel launches of the capped sweep."""
+    import torch
+
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.models.host_cache import HostBlockCache
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+    headroom = SWEEP_EVICT_BATCH + SWEEP_RESTORE_BATCH
+    for n_fwd in SWEEP_FWD:
+        t0 = time.perf_counter()
+        gt, frames = sweep_frames(n_fwd, device)
+        torch.cuda.synchronize()
+        t_render = time.perf_counter() - t0
+        big = sweep_config(1 << 16)
+        run_sweep(big, frames[:3], device)  # warm the allocator and the kernels
+        ref = run_sweep(big, frames, device)
+        total = int(ref["state"].num_blocks)
+        vis = max(int(a.num_visible) for a in ref["auxes"])
+        alloc = max(int(a.blocks_allocated) for a in ref["auxes"][1:])
+        overflow = sum(int(a.visible_overflow) > 0 for a in ref["auxes"])
+        ate_ref = ate_rmse(ref["poses"], gt, align=False)
+        # The largest capacity the map admits (a power of two: its hash
+        # masks with capacity - 1) with N > 1.2 x capacity.
+        cap = 1
+        while 1.2 * (2 * cap) < total:
+            cap *= 2
+        print(f"sweep, {n_fwd} frames out and {n_fwd - 1} back (rendered in {t_render:.1f} s): "
+              f"uncapped run at 2^16 blocks: N = {total} blocks, at most {vis} visible and "
+              f"{alloc} allocated in a frame, visible_overflow on {overflow} frames, ATE "
+              f"{ate_ref * 1000:.3f} mm, {len(frames) / ref['seconds']:.2f} frames/s; "
+              f"capped capacity {cap} (free headroom {headroom})")
+        check(all(bool(a.ok) for a in ref["auxes"]), "uncapped sweep: a frame failed to track")
+        check(all(int(a.blocks_dropped) == 0 for a in ref["auxes"]), "uncapped sweep: blocks dropped")
+        # The slots the cache keeps free must take a frame's new blocks and
+        # a restore batch, and the rest of the pool the visible set.
+        if headroom >= alloc + SWEEP_RESTORE_BATCH and cap - headroom >= vis:
+            break
+        print("  the working set does not fit under such a capacity: a longer sweep")
+    else:
+        raise AssertionError("no capacity with N > 1.2 x capacity holds the working set")
+    check(total > 1.2 * cap, f"premise: {total} blocks <= 1.2 x {cap}")
+
+    small = sweep_config(cap)
+    cache = HostBlockCache(small.blockmap, small.tsdf, small.camera,
+                           evict_batch=SWEEP_EVICT_BATCH, restore_batch=SWEEP_RESTORE_BATCH,
+                           device=device)
+    check(cache.headroom == headroom, "the cache's headroom is not the planned one")
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    integrate_blocks_cuda.vector_launches = 0
+    got = run_sweep(small, frames, device, cache)
+    launches, vector = integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches
+    live = int(got["state"].num_blocks)
+    ate = ate_rmse(got["poses"], gt, align=False)
+    dropped = sum(int(a.blocks_dropped) for a in got["auxes"])
+    evicted, restored = sum(got["evicted"]), sum(got["restored"])
+    restored_back = sum(got["restored"][n_fwd:])
+    print(f"  capped run with the host cache: ATE {ate * 1000:.3f} mm, blocks dropped {dropped}, "
+          f"live {live} + host {cache.n_host_blocks} = {live + cache.n_host_blocks} of N = {total}; "
+          f"{evicted} blocks evicted, {restored} restored ({restored_back} on the return leg); "
+          f"{len(frames) / got['seconds']:.2f} frames/s; kernel launches {launches} "
+          f"({vector} of the column kernel) for {len(frames)} frames")
+
+    elem = got["state"].tsdf.element_size()
+    block_bytes = 2 * small.blockmap.block_size ** 3 * elem + 12 + 1
+    ev = [(ms, n) for ms, n in zip(got["evict_ms"], got["evicted"]) if n > 0]
+    rs = [(ms, n) for ms, n in zip(got["restore_ms"], got["restored"]) if n > 0]
+    idle = [ms for ms, n in zip(got["evict_ms"], got["evicted"]) if n == 0]
+    if ev:
+        rounds = sum(-(-n // SWEEP_EVICT_BATCH) for _, n in ev)
+        print(f"  evict: {len(ev)} calls of after_step evicted, in {rounds} rounds of up to "
+              f"{SWEEP_EVICT_BATCH} blocks: median {statistics.median(m for m, _ in ev):.2f} ms per "
+              f"call (max {max(m for m, _ in ev):.2f}), {sum(m for m, _ in ev) / rounds:.2f} ms per "
+              f"round, {statistics.median(n for _, n in ev)} blocks per call in the median; a round "
+              f"copies {SWEEP_EVICT_BATCH * block_bytes + cap * 4} B to the host (the padded batch "
+              f"and the remap) and {SWEEP_EVICT_BATCH * 4} B to the card; a call that evicts "
+              f"nothing {statistics.median(idle) if idle else 0.0:.2f} ms")
+    if rs:
+        print(f"  restore: {len(rs)} batches of up to {SWEEP_RESTORE_BATCH} blocks: median "
+              f"{statistics.median(m for m, _ in rs):.2f} ms per batch (max "
+              f"{max(m for m, _ in rs):.2f}), {statistics.median(n for _, n in rs)} blocks per "
+              f"batch in the median; a batch copies {SWEEP_RESTORE_BATCH * (block_bytes + 3 * elem)} "
+              f"B to the card and {SWEEP_RESTORE_BATCH} B back")
+    check(all(bool(a.ok) for a in got["auxes"]), "capped sweep: a frame failed to track")
+    check(int(got["state"].resets) == 0, "capped sweep: the pipeline reset")
+    check(dropped == 0, f"capped sweep: {dropped} blocks dropped despite swapping")
+    check(cache.n_host_blocks > 0, "capped sweep: nothing on the host")
+    check(live + cache.n_host_blocks >= int(0.95 * total),
+          f"capped sweep: live + host = {live + cache.n_host_blocks} < 0.95 x {total}")
+    check(ate <= 1.2 * ate_ref + 2e-4, f"capped sweep: ATE {ate} m against {ate_ref} m uncapped")
+    check(restored_back > 0, "capped sweep: no restore on the return leg")
+    check(launches == len(frames), f"capped sweep: {launches} launches for {len(frames)} frames")
+    check(vector == launches, "capped sweep: did not take the column kernel")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -801,7 +1129,7 @@ def main() -> int:
         print(f"chip_smoke: the port package is missing: {e}", file=sys.stderr)
         return 1
 
-    from topfusion_tpu_torch.io.synthetic import orbit_trajectory
+    from topfusion_tpu_torch.io.synthetic import SyntheticScene, orbit_trajectory
 
     try:
         smi = banner()
@@ -814,16 +1142,37 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"rendered {len(frames)} frames {tuple(frames[0].shape)} "
               f"{frames[0].dtype} in {time.perf_counter() - t0:.2f} s")
+        clock = [time.perf_counter()]
+
+        def took(phase: str) -> None:
+            torch.cuda.synchronize()
+            clock.append(time.perf_counter())
+            print(f"[{phase} took {clock[-1] - clock[-2]:.1f} s]")
+
         k = kernel_vs_plain(frames, poses, device)
         generic_path_check(frames, poses, device)
+        took("phase 3, kernel against plain")
         pipe, fused, est, step_launches = main_path(frames, poses, device)
+        took("phases 4-5, main path")
         display_phase(pipe, fused, device)
-        launches = {
-            "step": step_launches,
-            "step_raycast_model_maps": raycast_model_maps_phase(frames, poses, device),
-            "step_rgb": color_phase(frames, poses, est, device),
-        }
+        took("phase 6, display")
+        launches = {"step": step_launches,
+                    "step_raycast_model_maps": raycast_model_maps_phase(frames, poses, device)}
+        took("phase 7, raycast model maps")
+        scene = SyntheticScene()
+        rgbs = [scene.render_rgb(cfg.camera, torch.as_tensor(T, dtype=torch.float32, device=device))
+                for T in poses]
+        launches["step_rgb"] = color_phase(frames, rgbs, poses, est, device)
+        took("phase 8, color")
         pointcloud_phase(pipe, fused)
+        took("phase 9, point cloud")
+        del pipe, fused
+        torch.cuda.empty_cache()
+        dense_phase(frames, rgbs, poses, device)
+        took("phase 10, dense")
+        torch.cuda.empty_cache()
+        launches["step_out_of_core_sweep"] = swap_phase(device)
+        took("phase 11, out-of-core sweep")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -836,7 +1185,6 @@ def main() -> int:
         "replaces": KERNEL_REPLACES,
         "launches": sum(launches.values()),
         "launches_by_path": launches,
-        "launches_per_frame": sum(launches.values()) / (FRAMES * len(launches)),
         "max_abs_err": k["max_abs_err"],
         "ms": k["ms"],
         "plain_ms": k["plain_ms"],

@@ -1,8 +1,8 @@
 """The port's CUDA integrate kernels on the card (the column kernel for
 blocks of 8^3, the per-voxel kernel for any other size), held to the bit
 against their plain PyTorch version over the whole pool; and the display,
-color and point-cloud paths on the card: their host syncs, and their
-agreement with the same calls on the CPU.
+color, point-cloud, dense-volume and block-swap paths on the card: their
+host syncs, and their agreement with the same calls on the CPU.
 
 This file imports no jax, so it runs on a GPU machine without it
 (``tests/conftest.py`` imports jax, hence ``--noconftest``)::
@@ -30,15 +30,23 @@ from topfusion_tpu_torch.config import (
     RaycastConfig,
     TSDFConfig,
 )
-from topfusion_tpu_torch.convert import block_state_from_numpy, block_state_to_numpy
+from topfusion_tpu_torch.convert import (
+    block_state_from_numpy,
+    block_state_to_numpy,
+    dense_state_from_numpy,
+    dense_state_to_numpy,
+)
 from topfusion_tpu_torch.io.synthetic import SyntheticScene, orbit_trajectory
 from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+from topfusion_tpu_torch.models.pipeline import DensePipeline
 from topfusion_tpu_torch.ops import blockmap as tbm
 from topfusion_tpu_torch.ops import tsdf_block as ttb
 from topfusion_tpu_torch.ops.cuda.build import load_library
 from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
 from topfusion_tpu_torch.ops.depth import depth_to_meters
-from topfusion_tpu_torch.ops.pointcloud import extract_pointcloud_blocks
+from topfusion_tpu_torch.ops import swap as tsw
+from topfusion_tpu_torch.ops import tsdf_dense as td
+from topfusion_tpu_torch.ops.pointcloud import extract_pointcloud_blocks, extract_pointcloud_dense
 
 
 def small_cfg(pool_dtype="float32", max_weight=2.0, stop_at_max=False, block_size=8):
@@ -414,6 +422,161 @@ def test_depth_only_step_is_untouched_by_the_color_pass(mapped):
     b, _ = pipe.step_rgb(state, frame, rgb)
     assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.T_wc, b.T_wc)
     assert a.color.shape == b.color.shape == (1, 1, 1, 1, 3)
+
+
+# ----------------------------------------------------------------- dense volume
+def count_syncs(fn):
+    """(result, messages of the synchronizing calls PyTorch detected)."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, [str(w.message) for w in rec
+                 if str(w.message).startswith("called a synchronizing")]
+
+
+@pytest.fixture(scope="module")
+def dense():
+    """The 96^3 dense volume with color after 4 RGB-D frames on the card,
+    guided raycast model maps: (pipeline, state, next depth, next rgb)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the dense-volume paths of this file run on an NVIDIA GPU")
+    dev = torch.device("cuda")
+    cfg = small_cfg(max_weight=100.0)
+    cfg = dataclasses.replace(cfg, tsdf=dataclasses.replace(cfg.tsdf, use_color=True))
+    scene = SyntheticScene()
+    poses = [torch.as_tensor(T, device=dev)
+             for T in orbit_trajectory(5, max_angle_deg=4.0, max_shift=0.04, seed=3)]
+    depths = [scene.render_depth_mm(cfg.camera, T) for T in poses]
+    rgbs = [scene.render_rgb(cfg.camera, T) for T in poses]
+    pipe = DensePipeline(cfg, dev)
+    state = pipe.init()
+    for d, c in zip(depths[:4], rgbs[:4]):
+        state, aux = pipe.step_rgb(state, d, c)
+        assert bool(aux.ok)
+    return pipe, state, depths[4], rgbs[4]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("guided", [True, False], ids=["guided", "full"])
+def test_dense_step_syncs_the_host_once(dense, guided):
+    """A dense step, color fusion and either raycast branch included,
+    issues one synchronizing operation: ICP's eigvalsh."""
+    pipe, state, depth, rgb = dense
+    pipe = DensePipeline(dataclasses.replace(pipe.cfg, raycast=dataclasses.replace(
+        pipe.cfg.raycast, guided=guided)), pipe.device)
+    (new, aux), syncs = count_syncs(lambda: pipe.step_rgb(state, depth, rgb))
+    assert len(syncs) == 1, syncs
+    assert bool(aux.ok) and int((new.weight != state.weight).sum()) > 1000
+    assert int((new.color != state.color).sum()) > 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["render", "render_color"])
+def test_dense_renders_make_no_host_sync(dense, mode):
+    pipe, state, _, _ = dense
+    img = forbid_syncs(lambda: getattr(pipe, mode)(state))
+    assert img.dtype == torch.uint8 and img.shape == (64, 80, 3) and img.is_cuda
+    assert int((img.sum(-1) > 0).sum()) > 1000
+
+
+@pytest.mark.cuda
+def test_extract_pointcloud_dense_makes_no_host_sync(dense):
+    pipe, state, _, _ = dense
+    pc = forbid_syncs(lambda: extract_pointcloud_dense(
+        state.volume(), pipe.cfg.tsdf, pipe.cfg.dense, max_points=1 << 16))
+    assert 1000 < int(pc.count) == int(pc.valid.sum()) <= 1 << 16
+
+
+@pytest.mark.cuda
+def test_cpu_and_card_dense_agree(dense):
+    """The same state and frame on the CPU and on the card.  integrate
+    (depth and color): the pools equal to the bit (every operation rounds
+    once on both devices).  raycast, full and guided: ``hit`` equal and
+    depth within 1e-5 m on 99.5% of the pixels; ``render`` within one grey
+    level on 99% (``pow`` may differ in the last bit); the same point
+    cloud."""
+    pipe, state, depth, rgb = dense
+    cfg = pipe.cfg
+    cpu_pipe = DensePipeline(cfg, device="cpu")
+    cpu_state = dense_state_from_numpy(dense_state_to_numpy(state), device="cpu")
+    raw = depth_to_meters(depth)
+    T = state.T_wc
+    a = td.integrate_dense(state.volume(), cfg.camera, cfg.tsdf, cfg.dense, T, raw)
+    b = td.integrate_dense(cpu_state.volume(), cfg.camera, cfg.tsdf, cfg.dense, T.cpu(), raw.cpu())
+    assert int((b.weight != cpu_state.weight).sum()) > 1000
+    assert torch.equal(a.tsdf.cpu(), b.tsdf) and torch.equal(a.weight.cpu(), b.weight)
+    ca = td.integrate_color_dense(state.color, a, cfg.camera, cfg.tsdf, cfg.dense, T, raw, rgb)
+    cb = td.integrate_color_dense(cpu_state.color, b, cfg.camera, cfg.tsdf, cfg.dense,
+                                  T.cpu(), raw.cpu(), rgb.cpu())
+    assert torch.equal(ca.cpu(), cb)
+    for kw in ({}, dict(expected_depth=raw, depth_margin=0.22, max_steps=24)):
+        ra = td.raycast_dense(a, cfg.camera, cfg.tsdf, cfg.dense, cfg.raycast, T, **kw)
+        kw_cpu = {k: (v.cpu() if isinstance(v, torch.Tensor) else v) for k, v in kw.items()}
+        rb = td.raycast_dense(b, cfg.camera, cfg.tsdf, cfg.dense, cfg.raycast, T.cpu(), **kw_cpu)
+        assert int(rb.hit.sum()) > 2000
+        assert float((ra.hit.cpu() == rb.hit).float().mean()) >= 0.995
+        assert float(((ra.depth.cpu() - rb.depth).abs() <= 1e-5).float().mean()) >= 0.995
+    for mode in ("render", "render_color"):
+        x = getattr(pipe, mode)(state).cpu().to(torch.int32)
+        y = getattr(cpu_pipe, mode)(cpu_state).to(torch.int32)
+        assert float(((x - y).abs().amax(-1) <= 1).float().mean()) >= 0.99, mode
+    pa = extract_pointcloud_dense(state.volume(), cfg.tsdf, cfg.dense, 1 << 16)
+    pb = extract_pointcloud_dense(cpu_state.volume(), cfg.tsdf, cfg.dense, 1 << 16)
+    assert int(pa.count) == int(pb.count) > 1000
+    assert torch.equal(pa.valid.cpu(), pb.valid)
+    assert float((pa.points.cpu() - pb.points).abs().max()) <= 1e-6
+
+
+# ----------------------------------------------------------------- block swap
+def swap_inputs(m):
+    """Every third live slot, -1 padding and a slot that is not live."""
+    nb = int(m.num_blocks)
+    slots = torch.full((256,), -1, dtype=torch.int32)
+    pick = torch.arange(0, nb, 3, dtype=torch.int32)[:200]
+    slots[: len(pick)] = pick
+    slots[-1] = nb + 1
+    return slots
+
+
+@pytest.mark.cuda
+def test_swap_primitives_make_no_host_sync(colored):
+    pipe, state, _, _ = colored
+    m = state.block_map()
+    bm = pipe.cfg.blockmap
+    slots = swap_inputs(m).to(m.tsdf.device)
+    ex = forbid_syncs(lambda: tsw.extract_blocks(m, slots))
+    m2, remap = forbid_syncs(lambda: tsw.evict_blocks(m, slots, bm))
+    m3, ok = forbid_syncs(lambda: tsw.insert_blocks(m2, ex, bm, 100.0))
+    assert int(ex.valid.sum()) == 200 == int(ok.sum())
+    assert int(m2.num_blocks) == int(m.num_blocks) - 200 and int(m3.num_blocks) == int(m.num_blocks)
+    assert int((remap < 0).sum()) >= 200
+
+
+@pytest.mark.cuda
+def test_cpu_and_card_swap_agree(colored):
+    """extract, evict and insert on the card and on the CPU from the same
+    int16 color map: every field equal (integers, and float arithmetic
+    that rounds once per operation on both)."""
+    pipe, state, _, _ = colored
+    bm = pipe.cfg.blockmap
+    m = state.block_map()
+    cm = block_state_from_numpy(block_state_to_numpy(state), device="cpu").block_map()
+    slots = swap_inputs(m)
+    ex, cex = tsw.extract_blocks(m, slots.to(m.tsdf.device)), tsw.extract_blocks(cm, slots)
+    (m2, remap), (cm2, cremap) = (tsw.evict_blocks(m, slots.to(m.tsdf.device), bm),
+                                  tsw.evict_blocks(cm, slots, bm))
+    (m3, ok), (cm3, cok) = tsw.insert_blocks(m2, ex, bm, 100.0), tsw.insert_blocks(cm2, cex, bm, 100.0)
+    # Once more: now a merge with what is there.
+    (m4, _), (cm4, _) = tsw.insert_blocks(m3, ex, bm, 100.0), tsw.insert_blocks(cm3, cex, bm, 100.0)
+    for got, want in ((ex, cex), (m2, cm2), (m3, cm3), (m4, cm4), ((remap, ok), (cremap, cok))):
+        for name, g, w in zip(getattr(type(want), "_fields", ("remap", "ok")), got, want):
+            assert torch.equal(g.cpu(), w), name
+    assert not torch.equal(m4.weight, m3.weight)
 
 
 def test_wrapper_refuses_other_devices():

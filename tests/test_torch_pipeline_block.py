@@ -164,22 +164,17 @@ def test_integrate_paths_agree_on_cpu(runs):
     assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.T_wc, b.T_wc)
 
 
-@pytest.mark.parametrize("change", ["icp_onehot", "pointcloud_dense"])
+@pytest.mark.parametrize("change", ["icp_onehot"])
 def test_unported_options_raise(change):
-    """What the port still lacks says so by name (raycast model maps and
-    color, once here, are ported: see raycast_runs below and
-    tests/test_torch_color.py)."""
-    if change == "icp_onehot":
-        cfg = make_cfg()
-        cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, gather_mode="onehot"))
-        pipe = BlockPipeline(config_from_reference(cfg), device="cpu")
-        with pytest.raises(NotImplementedError, match="onehot"):
-            pipe.step(pipe.init(), torch.zeros((64, 80), dtype=torch.int32))
-    else:
-        from topfusion_tpu_torch.ops.pointcloud import extract_pointcloud_dense
-
-        with pytest.raises(NotImplementedError, match="dense"):
-            extract_pointcloud_dense(None, None, None)
+    """What the port still lacks says so by name (raycast model maps,
+    color and the dense point cloud, once here, are ported: see
+    raycast_runs below, tests/test_torch_color.py and
+    tests/test_torch_pointcloud.py)."""
+    cfg = make_cfg()
+    cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, gather_mode="onehot"))
+    pipe = BlockPipeline(config_from_reference(cfg), device="cpu")
+    with pytest.raises(NotImplementedError, match="onehot"):
+        pipe.step(pipe.init(), torch.zeros((64, 80), dtype=torch.int32))
 
 
 def raycast_cfg(guided):

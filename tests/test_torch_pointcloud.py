@@ -1,5 +1,6 @@
 """Point-cloud extraction and PLY export of the port against the JAX
-package, on the 8-frame fused map of tests/test_torch_raycast.py."""
+package, on the 8-frame fused map of tests/test_torch_raycast.py and on
+the 4-frame dense volume of tests/test_torch_tsdf_dense.py."""
 
 import jax
 import jax.numpy as jnp
@@ -8,6 +9,7 @@ import pytest
 import torch
 
 from tests.test_torch_raycast import fused
+from tests.test_torch_tsdf_dense import fused as fused_dense
 from topfusion_tpu.ops import pointcloud as jpc
 from topfusion_tpu_torch.io.synthetic import SyntheticScene
 from topfusion_tpu_torch.ops import pointcloud as tpc
@@ -126,6 +128,59 @@ def test_save_ply_skips_invalid_rows(tmp_path):
                     "6.000000 7.000000 8.000000 1.0000 1.0000 1.0000"]
 
 
-def test_extract_pointcloud_dense_names_what_is_missing():
-    with pytest.raises(NotImplementedError, match="dense volume"):
-        tpc.extract_pointcloud_dense(None, None, None)
+@pytest.fixture(scope="module")
+def dense_clouds():
+    f = fused_dense()
+    cfg, tcfg = f["cfg"], f["tcfg"]
+    want = jax.jit(lambda v: jpc.extract_pointcloud_dense(v, cfg.tsdf, cfg.dense))(f["vol"])
+    got = tpc.extract_pointcloud_dense(f["tvol"], tcfg.tsdf, tcfg.dense)
+    return want, got
+
+
+def test_extract_pointcloud_dense_matches_jax(dense_clouds):
+    """Same count and order as JAX (rank by the voxel's flat index), points
+    within 1e-6 m, normals within 1e-5."""
+    want, got = dense_clouds
+    n = int(want.count)
+    assert int(got.count) == n > 3000
+    assert got.points.shape == (1 << 20, 3) and got.count.dtype == torch.int32
+    np.testing.assert_array_equal(got.valid.numpy(), np.asarray(want.valid))
+    assert int(got.valid.sum()) == n and bool(got.valid[:n].all())
+    np.testing.assert_allclose(got.points.numpy(), np.asarray(want.points), rtol=0, atol=1e-6)
+    np.testing.assert_allclose(got.normals.numpy(), np.asarray(want.normals), rtol=0, atol=1e-5)
+    assert not got.points[n:].any() and not got.normals[n:].any()
+
+
+def test_dense_points_lie_on_the_scene_surface(dense_clouds):
+    """Within two voxels (3 cm) of the analytic scene's zero level set on
+    99% of the points, unit normals, all inside the volume's box."""
+    _, got = dense_clouds
+    tcfg = fused_dense()["tcfg"]
+    p = got.points[got.valid]
+    d = SyntheticScene().sdf(p).abs().numpy()
+    assert (d < 2 * tcfg.tsdf.voxel_size).mean() >= 0.99
+    nn = torch.linalg.vector_norm(got.normals[got.valid], dim=-1).numpy()
+    np.testing.assert_allclose(nn, 1.0, atol=1e-5)
+    lo = torch.tensor(tcfg.dense.origin) - tcfg.tsdf.voxel_size
+    hi = lo + (64 + 2) * tcfg.tsdf.voxel_size
+    assert bool(((p >= lo) & (p <= hi)).all())
+
+
+@pytest.mark.parametrize("max_points", [1, 100, 2049])
+def test_dense_capacity_truncates_in_order(dense_clouds, max_points):
+    f = fused_dense()
+    _, full = dense_clouds
+    got = tpc.extract_pointcloud_dense(f["tvol"], f["tcfg"].tsdf, f["tcfg"].dense,
+                                       max_points=max_points)
+    assert int(got.count) == max_points and bool(got.valid.all())
+    assert torch.equal(got.points, full.points[:max_points])
+    assert torch.equal(got.normals, full.normals[:max_points])
+
+
+def test_empty_dense_volume_gives_no_points():
+    from topfusion_tpu_torch.ops.tsdf_dense import make_dense_volume
+
+    tcfg = fused_dense()["tcfg"]
+    got = tpc.extract_pointcloud_dense(make_dense_volume(tcfg.dense), tcfg.tsdf, tcfg.dense,
+                                       max_points=64)
+    assert int(got.count) == 0 and not got.valid.any() and not got.points.any()

@@ -7,7 +7,9 @@ BlockPipeline``) with its one hand-written CUDA kernel, the fused TSDF
 integrate (``csrc/integrate.cu``, wrapped by ``ops.cuda.integrate``);
 RGB fusion (``step_rgb``); the display (``render``, ``render_normals``,
 ``render_confidence``, ``render_color`` over the hashed-map raycast);
-and point-cloud export (``ops.pointcloud``).
+point-cloud export (``ops.pointcloud``); the dense-volume pipeline
+(``models.pipeline.DensePipeline`` over ``ops.tsdf_dense``); and the
+out-of-core block swap (``ops.swap``, ``models.host_cache.HostBlockCache``).
 """
 
 from .config import (
@@ -21,6 +23,7 @@ from .config import (
     TSDFConfig,
 )
 from .models.block_pipeline import BlockPipeline
+from .models.pipeline import DensePipeline
 
 __version__ = "0.1.0"
 
@@ -33,5 +36,6 @@ __all__ = [
     "RaycastConfig",
     "PipelineConfig",
     "PoseGraphConfig",
+    "DensePipeline",
     "BlockPipeline",
 ]

@@ -23,10 +23,14 @@ def project(
     No validity handling here — callers gate on z > 0 and bounds.
     """
     z = points[..., 2]
-    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
-    u = points[..., 0] / safe_z * cam.fx + cam.cx
-    v = points[..., 1] / safe_z * cam.fy + cam.cy
+    u, v = project_xyz(cam, points[..., 0], points[..., 1], z)
     return torch.stack([u, v], dim=-1), z
+
+
+def project_xyz(cam: CameraConfig, x, y, z) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``project`` on separate coordinate tensors: pixel coords (u, v)."""
+    safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
+    return x / safe_z * cam.fx + cam.cx, y / safe_z * cam.fy + cam.cy
 
 
 def backproject(

@@ -80,11 +80,14 @@ def _append_bottom_row(top: torch.Tensor) -> torch.Tensor:
     return torch.cat([top, bottom.expand(top.shape[:-2] + (1, 4))], dim=-2)
 
 
-def _apply_rows(M: torch.Tensor, p: torch.Tensor) -> list:
+def _apply_rows_xyz(M: torch.Tensor, x, y, z) -> list:
     """[M[i,0]*x + M[i,1]*y + M[i,2]*z for i in 0..2], left to right."""
-    x, y, z = p[..., 0], p[..., 1], p[..., 2]
     return [M[..., i, 0] * x + M[..., i, 1] * y + M[..., i, 2] * z
             for i in range(3)]
+
+
+def _apply_rows(M: torch.Tensor, p: torch.Tensor) -> list:
+    return _apply_rows_xyz(M, p[..., 0], p[..., 1], p[..., 2])
 
 
 def se3_inverse(T: torch.Tensor) -> torch.Tensor:
@@ -100,6 +103,15 @@ def transform_points(T: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """Apply 4x4 T to points (...,3)."""
     rows = _apply_rows(T, points)
     return torch.stack([rows[i] + T[..., i, 3] for i in range(3)], dim=-1)
+
+
+def transform_xyz(T: torch.Tensor, x, y, z) -> list:
+    """Apply one 4x4 T to points given as three coordinate tensors that
+    broadcast against each other (the axes of a grid, say): the three
+    coordinates of ``transform_points`` on the broadcast points, value
+    for value, without the [..., 3] tensor."""
+    rows = _apply_rows_xyz(T, x, y, z)
+    return [rows[i] + T[i, 3] for i in range(3)]
 
 
 def rotate_vectors(T: torch.Tensor, vectors: torch.Tensor) -> torch.Tensor:

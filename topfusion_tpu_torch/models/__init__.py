@@ -1,3 +1,4 @@
 from .block_pipeline import BlockPipeline, BlockState
+from .pipeline import DensePipeline, DenseState
 
-__all__ = ["BlockPipeline", "BlockState"]
+__all__ = ["DensePipeline", "DenseState", "BlockPipeline", "BlockState"]

@@ -12,9 +12,10 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..config import BlockMapConfig, TSDFConfig
+from ..config import BlockMapConfig, DenseVolumeConfig, TSDFConfig
 from ..utils.numerics import norm3
 from .blockmap import BlockMap, decode_tsdf, decode_weight, voxel_centers
+from .tsdf_dense import DenseVolume, voxel_center_axes
 
 
 class PointCloud(NamedTuple):
@@ -67,11 +68,21 @@ def _surface_from_grid(tsdf, weight, world_pos, mu, voxel):
     return pts, normal, near
 
 
-def extract_pointcloud_dense(*args, **kwargs):
-    raise NotImplementedError(
-        "extract_pointcloud_dense comes with the dense volume "
-        "(ops/tsdf_dense.py and models/pipeline.py), which is not ported yet"
+def extract_pointcloud_dense(
+    vol: DenseVolume,
+    tsdf_cfg: TSDFConfig,
+    dense_cfg: DenseVolumeConfig,
+    max_points: int = 1 << 20,
+) -> PointCloud:
+    """Extract from a dense volume (one pass over the [D0, D1, D2] grid;
+    gradients wrap around at its faces)."""
+    voxel = tsdf_cfg.voxel_size
+    axes = voxel_center_axes(dense_cfg.dims, voxel, dense_cfg.origin, vol.tsdf.device)
+    pw = torch.stack(torch.broadcast_tensors(*axes), dim=-1)
+    pts, nrm, near = _surface_from_grid(
+        vol.tsdf, vol.weight, pw, tsdf_cfg.trunc_dist, voxel
     )
+    return _emit(pts, nrm, near, max_points)
 
 
 def extract_pointcloud_blocks(

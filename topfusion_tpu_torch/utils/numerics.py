@@ -30,6 +30,13 @@ def norm3(v: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x * x + y * y + z * z)
 
 
+def vec(values, device, dtype=torch.float32) -> torch.Tensor:
+    """A short vector of Python numbers as a tensor made ON ``device``, one
+    fill per element: ``torch.tensor(values, device="cuda")`` would copy
+    from the host, which synchronizes."""
+    return torch.cat([torch.full((1,), v, dtype=dtype, device=device) for v in values])
+
+
 def linspace01(k: int, device) -> torch.Tensor:
     """The float32 values the JAX package's ``jnp.linspace(0, 1, k)``
     takes: ``i * float32(1/(k-1))`` for i < k-1 (XLA multiplies by the
