@@ -62,12 +62,30 @@ Phases, each of which must pass (else the exit code is 1):
      return leg, live + host blocks >= 0.95 N, ATE <= 1.2 x the uncapped
      run's + 0.2 mm, one kernel launch per frame; blocks evicted and
      restored, ms and bytes over PCIe per evict round and restore batch,
-     frames/s with and without the cache.
+     frames/s with and without the cache;
+ 12. SLAM, at the app's VGA operating point (the ``--synthetic-vga``
+     camera, 4096 visible blocks, the int16 pool, K = 96, the occlusion
+     cull, the default pose graph: 256 keyframes, 1024 edges, keyframes
+     every 10 frames at level 1, PCG 10 x 48, re-integration): (a) an
+     80-frame out-and-back (lengthened to 100 or 120 if no loop closes)
+     through ``SlamSystem.process_chunk`` in chunks of 30: every frame
+     tracked, no reset, no block dropped, a loop closed, optimized ATE <
+     12 mm and <= 1.5 x the odometry's + 1 mm, one column-kernel launch
+     per frame and per re-fused frame, at most n + 2 host syncs for a chunk
+     of n frames without a closure; (b) the same frames with every
+     correction rebuilding the map from the keyframes and a 32-frame ring,
+     twice: a rebuild, launches = frames + the frames the rebuilds re-fuse,
+     both runs' graphs and poses bit-identical, the rebuilt map raycast
+     from the corrected pose within a median 3 voxels of the scene, 3
+     more frames tracked; then ``detect_loop``, ``_optimize_ex`` and
+     ``_reint`` timed on (b)'s graph and map, and one chunk profiled;
+     (c) the app as a subprocess, ``--synthetic 60 --synthetic-vga``: exit
+     0, every output file, optimized ATE < 12 mm.
 
-The kernel's launch count is set to 0 before each of the four stepping
-paths through ``BlockPipeline`` (4, 7, 8, and the capped sweep of 11) and
-read after it; the dense path launches no hand-written kernel (its
-integrate is XLA in the JAX package and plain PyTorch here).  What each
+The kernel's launch count is set to 0 before each of the stepping paths
+(4, 7, 8, the capped sweep of 11, and 12 (a) and (b)) and read after it;
+the dense path launches no hand-written kernel (its integrate is XLA in
+the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
 kernel results, the nvidia-smi name and power limit, and
 ``{"ok": true, "device": {...}}``.  Without CUDA,
@@ -122,6 +140,12 @@ SWEEP_PITCH_RAD = 0.35  # the floor and box tops stay within range down the corr
 SWEEP_FRUSTUM_MAX_M = 2.0  # matches the depth truncation: bounds the per-frame working set
 SWEEP_EVICT_BATCH = 1024
 SWEEP_RESTORE_BATCH = 512
+SLAM_FRAMES = (80, 100, 120)  # out-and-back lengths; lengthened until a loop closes
+SLAM_CHUNK = 30  # the app's frames per process_chunk call at keyframe_every = 10
+SLAM_RING = 32  # reint_ring of the rebuild run
+SLAM_MORE = 3  # frames tracked after the rebuild
+SLAM_APP_FRAMES = 60
+SLAM_APP_TIMEOUT_S = 600
 
 
 def bench_config(pool_dtype: str = "int16"):
@@ -1113,6 +1137,244 @@ def swap_phase(device) -> int:
     return launches
 
 
+def slam_config(**posegraph):
+    """The app's VGA operating point (``topfusion_tpu_torch.apps.run_fusion``,
+    as apps/run_fusion.py:127-160): the ``--synthetic-vga`` camera (640x480,
+    fx = fy = 500), the default ``PipelineConfig`` with 4096 visible blocks,
+    the int16 pool, K = 96 surfels and the occlusion cull, and the default
+    ``PoseGraphConfig`` (256 keyframes, 1024 edges, keyframes every 10
+    frames at level 1, PCG 10 x 48, re-integration) with ``posegraph``
+    replaced."""
+    import argparse
+
+    from topfusion_tpu_torch.apps.run_fusion import _app_config
+    from topfusion_tpu_torch.config import CameraConfig
+
+    cfg = _app_config(argparse.Namespace(config=None, overrides=[], rgb=False))
+    return dataclasses.replace(
+        cfg, camera=CameraConfig(width=640, height=480, fx=500.0, fy=500.0, cx=320.0, cy=240.0),
+        posegraph=dataclasses.replace(cfg.posegraph, **posegraph))
+
+
+def out_and_back(n: int):
+    """tests/test_slam.py's out-and-back: 0.08 rad of yaw and 0.10 m along x
+    at the turn, back to the start."""
+    import math
+
+    import torch
+
+    from topfusion_tpu_torch.geometry.se3 import se3_exp
+
+    return [se3_exp(torch.tensor([0, 0.08 * s, 0, 0.10 * s, 0.02 * s, 0])).numpy()
+            for s in (math.sin(math.pi * i / (n - 1)) for i in range(n))]
+
+
+def run_slam(cfg, frames, device, count_syncs: bool = False, profile_chunk=None) -> dict:
+    """The frames through ``SlamSystem.process_chunk`` in chunks of
+    SLAM_CHUNK from a warmed system, the integrate launch counts set to 0
+    just before and read just after.  Every re-integration is recorded
+    with the frames it re-fuses (its keyframes, and the ring's frames),
+    which is the launch count the code implies.  With ``count_syncs`` the
+    host syncs of each chunk are counted (PyTorch's sync debug mode); the
+    chunk numbered ``profile_chunk`` runs under the profiler."""
+    import warnings
+
+    import torch
+
+    from topfusion_tpu_torch.models.slam import SlamSystem
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+    slam = SlamSystem(cfg, device=device)
+    slam.warmup(SLAM_CHUNK)
+    refused = []
+    reint = slam._reint
+
+    def recorded_reint(*args):
+        frame_now, num_kf = args[6], args[7]
+        refused.append(num_kf + (frame_now - max(frame_now - slam.R, 0) if slam.R else 0))
+        return reint(*args)
+
+    slam._reint = recorded_reint
+    r = dict(infos=[], chunk_ms=[], syncs=[], refused=refused)
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    integrate_blocks_cuda.vector_launches = 0
+    for c0 in range(0, len(frames), SLAM_CHUNK):
+        chunk = frames[c0:c0 + SLAM_CHUNK]
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            if count_syncs:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                if c0 // SLAM_CHUNK == profile_chunk:
+                    got = []
+                    r["profile"] = profiled(lambda: got.append(slam.process_chunk(chunk)))
+                    infos = got[0]
+                else:
+                    infos = slam.process_chunk(chunk)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        r["chunk_ms"].append((time.perf_counter() - t0) * 1000)
+        r["syncs"].append(sum(str(w.message).startswith("called a synchronizing") for w in rec))
+        r["infos"] += infos
+    torch.cuda.synchronize()
+    r["launches"] = integrate_blocks_cuda.launches
+    r["vector_launches"] = integrate_blocks_cuda.vector_launches
+    r["slam"] = slam
+    return r
+
+
+def check_slam(name, r, gt) -> tuple:
+    """The assertions of phase 12 (a) and (b): every frame tracked, no
+    reset, no block dropped, a loop closed, the optimized ATE under
+    ATE_LIMIT_M and within 1.5 x the odometry's + 1 mm, and one column
+    kernel launch per frame and per re-fused frame.  Returns (odometry
+    ATE, optimized ATE)."""
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+
+    slam, infos = r["slam"], r["infos"]
+    odom = ate_rmse(slam.odom_poses, gt, align=False)
+    opt = ate_rmse(slam.optimized_trajectory(), gt, align=False)
+    expect = len(infos) + sum(r["refused"])
+    n_chunks = len(r["chunk_ms"])
+    print(f"{name}: {len(infos)} frames in {n_chunks} chunks, {int(slam.graph.num_kf)} keyframes, "
+          f"{int(slam.graph.num_edges)} edges, loops closed {slam.loops_closed}, "
+          f"re-integrations {slam.reintegrations} (re-fusing {r['refused']} frames); ATE "
+          f"odometry {odom * 1000:.3f} mm, optimized {opt * 1000:.3f} mm; kernel launches "
+          f"{r['launches']} ({r['vector_launches']} of the column kernel), implied {expect}; "
+          f"ms per chunk {[round(x, 1) for x in r['chunk_ms']]}, host syncs per chunk "
+          f"{r['syncs']}")
+    check(all(i["ok"] for i in infos), f"{name}: a frame failed to track")
+    check(not any(i["reset"] for i in infos), f"{name}: the pipeline reset")
+    check(all(i["dropped"] == 0 for i in infos), f"{name}: blocks dropped")
+    check(slam.loops_closed >= 1, f"{name}: no loop closed")
+    check(opt < ATE_LIMIT_M, f"{name}: optimized ATE {opt} m >= {ATE_LIMIT_M} m")
+    check(opt <= 1.5 * odom + 1e-3, f"{name}: optimized ATE {opt} m against odometry {odom} m")
+    check(r["launches"] == expect, f"{name}: {r['launches']} launches, the code implies {expect}")
+    check(r["vector_launches"] == r["launches"], f"{name}: did not take the column kernel")
+    return odom, opt
+
+
+def slam_phase(device) -> dict:
+    """Phase 12.  Returns the kernel launches of (a) and (b)."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.io.synthetic import SyntheticScene
+    from topfusion_tpu_torch.models.posegraph import detect_loop
+    from topfusion_tpu_torch.ops.tsdf_block import raycast_blocks
+
+    cfg = slam_config()
+    scene = SyntheticScene()
+    for n in SLAM_FRAMES:
+        gt = out_and_back(n)
+        frames = torch.stack([scene.render_depth_mm(
+            cfg.camera, torch.as_tensor(T, device=device)) for T in gt])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        a = run_slam(cfg, frames, device, count_syncs=True)
+        peak = torch.cuda.max_memory_allocated()
+        if a["slam"].loops_closed >= 1:
+            break
+        print(f"slam: the {n}-frame out-and-back closed no loop: a longer one")
+    print(f"slam (a): out-and-back of {n} frames at {cfg.camera.width}x{cfg.camera.height}, "
+          f"chunks of {SLAM_CHUNK}, graph {cfg.posegraph.max_keyframes} keyframes x "
+          f"{cfg.posegraph.max_edges} edges, solver {cfg.posegraph.solver} "
+          f"{cfg.posegraph.gn_iters} x {cfg.posegraph.cg_iters}; peak memory "
+          f"{peak / 2**20:.1f} MiB")
+    check_slam("slam (a)", a, gt)
+    for k, (ms, syncs) in enumerate(zip(a["chunk_ms"], a["syncs"])):
+        size = min(SLAM_CHUNK, n - k * SLAM_CHUNK)
+        loop = any(i["loop"] for i in a["infos"][k * SLAM_CHUNK:(k + 1) * SLAM_CHUNK])
+        if not loop:  # a closure adds the solve's fetch
+            check(syncs <= size + 2, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
+    del a["slam"]
+
+    # (b): every correction rebuilds the map, from the keyframes and a ring.
+    cfg_b = slam_config(min_map_correction=0.0, reint_ring=SLAM_RING)
+    runs = []
+    for k in range(2):
+        b = run_slam(cfg_b, frames, device, profile_chunk=0 if k else None)
+        slam = b["slam"]
+        b["graph"] = [t.clone() for t in slam.graph]
+        b["poses"] = np.stack(slam.odom_poses)
+        b["opt"] = np.stack(slam.optimized_trajectory())
+        runs.append(b)
+    b = runs[0]
+    slam = b["slam"]
+    check_slam("slam (b)", b, gt)
+    check(slam.reintegrations >= 1, "slam (b): no re-integration")
+    b_launches = b["launches"]
+    same = (all(torch.equal(x, y) for x, y in zip(runs[0]["graph"], runs[1]["graph"]))
+            and np.array_equal(runs[0]["poses"], runs[1]["poses"])
+            and np.array_equal(runs[0]["opt"], runs[1]["opt"]))
+    print(f"  slam (b) twice: graphs, odometry and optimized poses bit-identical {same}")
+    check(same, "slam (b): two runs differ")
+
+    # The rebuilt map, raycast from the corrected live pose, against the
+    # scene's depth at the matching optimized pose (as tests/test_slam.py).
+    cam, voxel = cfg_b.camera, cfg_b.tsdf.voxel_size
+    T_live = torch.as_tensor(b["opt"][-1], device=device)
+    rc = raycast_blocks(slam.state.block_map(), cam, cfg_b.tsdf, cfg_b.blockmap, cfg_b.raycast,
+                        slam.state.T_wc)
+    d_scene = scene.render_depth(cam, T_live)
+    both = (rc.depth > 0) & (d_scene > 0) & rc.hit
+    med = float(torch.abs(rc.depth - d_scene)[both].median())
+    print(f"  rebuilt map against the scene from the corrected pose: {float(both.float().mean()):.4f} "
+          f"of the image compared, median |depth error| {med * 1000:.3f} mm ({med / voxel:.3f} voxels)")
+    check(float(both.float().mean()) > 0.5, "slam (b): the rebuilt map covers too little")
+    check(med < 3 * voxel, f"slam (b): median depth error {med} m >= 3 voxels")
+    more = slam.process_chunk(frames[-SLAM_MORE:])
+    check(all(i["ok"] for i in more), "slam (b): tracking lost after the rebuild")
+
+    # What the pieces cost on the warm card, on the graph and map of (b).
+    pgc = dataclasses.replace(cfg_b.posegraph, loop_queries=max(
+        cfg_b.posegraph.loop_queries, SLAM_CHUNK // cfg_b.posegraph.keyframe_every))
+    measure("detect_loop", lambda: detect_loop(slam.graph, slam.cam_l, pgc, cfg_b.icp), repeats=3)
+    kidx = len(slam.kf_odom_poses) - 1
+    measure("_optimize_ex", lambda: slam._optimize_ex(slam.graph, slam.kf_odom_buf[kidx]),
+            repeats=3)
+    measure("_reint", lambda: slam._reint(slam.state, slam.graph, slam.kf_depth_buf,
+                                          slam.kf_odom_buf[kidx], slam.kf_odom_buf, slam._ring(),
+                                          slam.frame_idx, len(slam.kf_odom_poses)), repeats=3)
+    ops, device_ms, wall_ms, top = runs[1]["profile"]
+    print(f"  (b)'s first chunk of {SLAM_CHUNK} frames, second run, under the profiler: "
+          f"{ops} device operations, "
+          f"{device_ms:.3f} ms of device time, wall {wall_ms:.1f} ms (with the profiler's cost); "
+          f"top kernels: " + "; ".join(f"{us / 1000:.3f} ms {k[:60]}" for k, us in top.most_common(4)))
+    del runs, slam, b
+
+    # (c): the app, as a user runs it.
+    with tempfile.TemporaryDirectory() as out:
+        cmd = [sys.executable, "-m", "topfusion_tpu_torch.apps.run_fusion", "--synthetic",
+               str(SLAM_APP_FRAMES), "--synthetic-vga", "--render-every", str(SLAM_CHUNK),
+               "--out", out]
+        t0 = time.perf_counter()
+        res = subprocess.run(cmd, capture_output=True, text=True, timeout=SLAM_APP_TIMEOUT_S,
+                             cwd=os.path.dirname(os.path.abspath(__file__)))
+        secs = time.perf_counter() - t0
+        print(f"slam (c): {' '.join(cmd[1:4])} ... exited {res.returncode} in {secs:.1f} s")
+        print("\n".join("  | " + line for line in res.stdout.strip().splitlines()[-6:]))
+        check(res.returncode == 0, f"slam (c): the app failed:\n{res.stderr[-3000:]}")
+        names = sorted(os.listdir(out))
+        want = ["cloud.ply", "metrics.json", "metrics.jsonl", "render_final.png", "state.npz",
+                "trajectory_odom.txt", "trajectory_opt.txt"]
+        print(f"  files: {names}")
+        check(all(f in names for f in want), f"slam (c): missing {set(want) - set(names)}")
+        check(any(f.startswith("config.") for f in names), "slam (c): no config written")
+        check(any(f.startswith("render_0") for f in names), "slam (c): no periodic render")
+        with open(os.path.join(out, "metrics.json")) as f:
+            summary = json.load(f)
+        print(f"  app: ATE odometry {summary['ate_odom_m'] * 1000:.3f} mm, optimized "
+              f"{summary['ate_opt_m'] * 1000:.3f} mm, {summary['app_fps_total']:.2f} frames/s "
+              f"overall, loops {summary['loops_closed']}, device {summary['device']}")
+        check(summary["ate_opt_m"] < ATE_LIMIT_M, f"slam (c): optimized ATE {summary['ate_opt_m']} m")
+    return {"slam": a["launches"], "slam_reintegrate": b_launches}
+
+
 def main() -> int:
     try:
         import torch
@@ -1173,6 +1435,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches["step_out_of_core_sweep"] = swap_phase(device)
         took("phase 11, out-of-core sweep")
+        torch.cuda.empty_cache()
+        launches.update(slam_phase(device))
+        took("phase 12, SLAM")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -26,6 +26,7 @@ from topfusion_tpu_torch.config import (
     DenseVolumeConfig,
     ICPConfig,
     PipelineConfig,
+    PoseGraphConfig,
     PreprocConfig,
     RaycastConfig,
     TSDFConfig,
@@ -605,3 +606,213 @@ def test_small_cfg_mirrors_the_jax_test_config():
     ours = dataclasses.replace(ours, blockmap=dataclasses.replace(
         ours.blockmap, use_pallas_integrate=ref.blockmap.use_pallas_integrate))
     assert ours == ref
+
+
+# ----------------------------------------------------------------- SLAM
+def slam_cfg(out_of_core=False, capacity=1 << 13):
+    """tests/test_slam.make_cfg (80x64, keyframes every 3 frames, a
+    16-keyframe graph) with the integrate kernel; optionally a capped pool
+    behind the host cache."""
+    return PipelineConfig(
+        camera=CameraConfig(width=80, height=64, fx=60.0, fy=60.0, cx=40.0, cy=32.0),
+        preproc=PreprocConfig(bilateral_kernel_size=1),
+        icp=ICPConfig(iters=(6, 4, 3)),
+        tsdf=TSDFConfig(voxel_size=0.01, trunc_dist=0.04),
+        blockmap=BlockMapConfig(capacity=capacity, max_new_blocks_per_frame=2048,
+                                max_visible_blocks=min(capacity, 1 << 12), alloc_pixel_stride=1,
+                                out_of_core=out_of_core),
+        raycast=RaycastConfig(max_steps=160),
+        posegraph=PoseGraphConfig(max_keyframes=16, max_edges=64, keyframe_every=3,
+                                  loop_candidate_window=2, loop_max_dist=0.3, gn_iters=5),
+    )
+
+
+def out_and_back(n):
+    """tests/test_slam.out_and_back: out and back along x with a yaw."""
+    from topfusion_tpu_torch.geometry.se3 import se3_exp
+
+    poses = []
+    for i in range(n):
+        s = math.sin(math.pi * i / (n - 1))
+        poses.append(se3_exp(torch.tensor([0, 0.08 * s, 0, 0.10 * s, 0.02 * s, 0])))
+    return poses
+
+
+def slam_frames(cfg, n, device):
+    scene = SyntheticScene()
+    return torch.stack([scene.render_depth_mm(cfg.camera, T.to(device)) for T in out_and_back(n)])
+
+
+@pytest.mark.cuda
+def test_slam_chunk_syncs_at_most_n_plus_2():
+    """A chunk of n frames (on the card already) syncs the host at most
+    n + 2 times: ICP's eigvalsh per frame, the batched loop verification's
+    eigvalsh, the one fetch."""
+    from topfusion_tpu_torch.models.slam import SlamSystem
+
+    if not torch.cuda.is_available():
+        pytest.skip("the SLAM system's card path runs on an NVIDIA GPU")
+    cfg = slam_cfg()
+    frames = slam_frames(cfg, 15, "cuda")
+    slam = SlamSystem(cfg)
+    ke = cfg.posegraph.keyframe_every
+    counts = []
+    for c0 in range(0, 15, ke):
+        infos, syncs = count_syncs(lambda: slam.process_chunk(frames[c0:c0 + ke]))
+        assert all(i["ok"] for i in infos)
+        if not any(i["loop"] for i in infos):   # a closure adds the solve's fetch
+            counts.append(len(syncs))
+            assert len(syncs) <= ke + 2, syncs
+    assert counts and slam.loops_closed >= 1
+
+
+def _drift_graph(device, k_cap=16, e_cap=64):
+    """tests/test_posegraph.test_optimize_corrects_drift's graph: six
+    keyframes drifting in y, true odometry edges and one loop edge 0 -> 5."""
+    from topfusion_tpu_torch.geometry.se3 import se3_exp, se3_inverse
+    from topfusion_tpu_torch.models import posegraph as pgm
+
+    cfg = PoseGraphConfig(max_keyframes=k_cap, max_edges=e_cap, gn_iters=8)
+    cam_l = slam_cfg().camera.at_level(1)
+    pg = pgm.make_pose_graph(cfg, cam_l, device)
+    p = torch.zeros((cam_l.height, cam_l.width, 3), device=device)
+    true = [se3_exp(torch.tensor([0, 0, 0, 0.05 * i, 0, 0])).to(device) for i in range(6)]
+    drift = [se3_exp(torch.tensor([0, 0, 0, 0.05 * i, 0.01 * i, 0])).to(device) for i in range(6)]
+    for i in range(6):
+        pg = pgm.add_keyframe(pg, drift[i], p, p, i, True)
+    eT = pg.edge_T.clone()
+    for e in range(5):
+        eT[e] = se3_inverse(true[e]) @ true[e + 1]
+    eT[5] = se3_inverse(true[0]) @ true[5]
+    ei, ej, loop = pg.edge_i.clone(), pg.edge_j.clone(), pg.edge_is_loop.clone()
+    ei[5], ej[5], loop[5] = 0, 5, True
+    pg = pg._replace(edge_T=eT, edge_i=ei, edge_j=ej, edge_is_loop=loop,
+                     num_edges=torch.full((), 6, dtype=torch.int32, device=device))
+    return pg, cfg
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_cap", [16, 256])
+def test_optimize_pcg_is_bit_reproducible(k_cap):
+    """Two PCG solves of one graph on the card give the same poses to the
+    bit (deterministic segment sums), also at the default 256 x 1024
+    capacities; and they agree with the CPU's within 1e-5."""
+    from topfusion_tpu_torch.models.posegraph import optimize_pcg
+
+    if not torch.cuda.is_available():
+        pytest.skip("the SLAM system's card path runs on an NVIDIA GPU")
+    pg, cfg = _drift_graph("cuda", k_cap, 4 * k_cap)
+    a, chi_a = optimize_pcg(pg, cfg)
+    b, chi_b = optimize_pcg(pg, cfg)
+    assert torch.equal(a.kf_poses, b.kf_poses) and torch.equal(chi_a, chi_b)
+    cpu_pg, _ = _drift_graph("cpu", k_cap, 4 * k_cap)
+    c, _ = optimize_pcg(cpu_pg, cfg)
+    assert float((a.kf_poses.cpu() - c.kf_poses).abs().max()) < 1e-5
+
+
+def _carry(src, dst):
+    """dst (a port SlamSystem) in the state of src, host cache included."""
+    from topfusion_tpu_torch.convert import slam_state_from_numpy, slam_state_to_numpy
+
+    slam_state_from_numpy(slam_state_to_numpy(src), dst)
+    if src.swap is not None:
+        dst.swap.store = {k: tuple(None if a is None else a.clone() for a in v)
+                          for k, v in src.swap.store.items()}
+        dst.swap.last_seen = src.swap.last_seen.copy()
+        dst.swap._frame = src.swap._frame
+
+
+def corridor_slam(device):
+    """tests/test_swap.py::test_swap_store_survives_reintegration: the
+    corridor 15 frames out (pitched camera, 6 cm steps) and back, a pool of
+    2048 blocks behind the host cache, keyframes every 3 frames, any loop
+    correction rebuilding the map.  (config, frames [29, H, W] u16)."""
+    from topfusion_tpu_torch.config import tiny_test_config
+    from topfusion_tpu_torch.geometry.se3 import se3_exp
+    from topfusion_tpu_torch.io.synthetic import corridor_scene, sweep_trajectory
+
+    base = tiny_test_config()
+    cfg = dataclasses.replace(
+        base,
+        tsdf=dataclasses.replace(base.tsdf, view_frustum_max=2.0),
+        blockmap=dataclasses.replace(base.blockmap, capacity=1 << 11,
+                                     max_visible_blocks=1 << 11, out_of_core=True),
+        posegraph=dataclasses.replace(base.posegraph, min_map_correction=0.0,
+                                      keyframe_every=3, loop_max_dist=0.5),
+    )
+    pitch = se3_exp(torch.tensor([0.35, 0, 0, 0, 0, 0])).numpy()
+    scene = corridor_scene(length_m=6.5, box_every=0.35)
+    fwd = [T @ pitch for T in sweep_trajectory(15, step_m=0.06)]
+    gt = fwd + fwd[::-1][1:]
+    return cfg, torch.stack([scene.render_depth_mm(cfg.camera, torch.as_tensor(T, device=device))
+                             for T in gt])
+
+
+@pytest.mark.cuda
+def test_out_of_core_slam_card_matches_cpu():
+    """SlamSystem with out_of_core=True on the corridor: each frame on the
+    card, from the CPU run's state and host cache before it, makes the CPU
+    frame's decisions (ok, reset, blocks dropped, loop, rebuild, keyframes)
+    with its pose within 0.25 mm and its blocks on the host within 1%.
+    Frames are compared one at a time because this badly conditioned
+    scene turns rounding into millimetres within a few frames
+    (tests/test_torch_swap.py; a chunk of 3 frames was 0.15 mm apart)."""
+    from topfusion_tpu_torch.models.slam import SlamSystem
+
+    if not torch.cuda.is_available():
+        pytest.skip("the SLAM system's card path runs on an NVIDIA GPU")
+    cfg, frames = corridor_slam("cpu")
+    cpu, card = SlamSystem(cfg, device="cpu"), SlamSystem(cfg)
+    for f in frames:
+        _carry(cpu, card)
+        want, got = cpu.process_frame(f), card.process_frame(f)
+        for key in ("ok", "reset", "dropped", "loop", "reintegrated"):
+            assert got.get(key) == want.get(key), (want["frame"], key)
+        assert abs(card.swap.n_host_blocks - cpu.swap.n_host_blocks) <= \
+            0.01 * cpu.swap.n_host_blocks + 2, want["frame"]
+        assert int(card.graph.num_kf) == int(cpu.graph.num_kf)
+        assert (card.loops_closed, card.reintegrations) == (cpu.loops_closed, cpu.reintegrations)
+        assert abs(card.odom_poses[-1] - cpu.odom_poses[-1]).max() < 2.5e-4, want["frame"]
+    assert cpu.swap.n_host_blocks > 0
+
+
+@pytest.mark.cuda
+def test_detect_loop_card_matches_cpu():
+    """tests/test_posegraph.py's revisit (keyframes walking out 15 cm and
+    back): detect_loop on the card closes the same loops as on the CPU,
+    with the measured transforms within 1e-5."""
+    from topfusion_tpu_torch.geometry.se3 import se3_exp
+    from topfusion_tpu_torch.models import posegraph as pgm
+    from topfusion_tpu_torch.ops.normals import compute_points_normals
+
+    if not torch.cuda.is_available():
+        pytest.skip("the SLAM system's card path runs on an NVIDIA GPU")
+    cfg = slam_cfg()
+    pgc = PoseGraphConfig(max_keyframes=16, max_edges=64, loop_candidate_window=3,
+                          loop_max_dist=0.5, gn_iters=5)
+    cam_l = cfg.camera.at_level(1)
+    scene = SyntheticScene()
+    out = []
+    for dev in ("cpu", "cuda"):
+        pg = pgm.make_pose_graph(pgc, cam_l, dev)
+        for i in range(8):
+            x = 0.05 * i if i < 4 else 0.05 * (7 - i)
+            T = se3_exp(torch.tensor([0, 0, 0, x, 0, 0])).to(dev)
+            p, n = compute_points_normals(cam_l, scene.render_depth(cam_l, T))
+            pg = pgm.add_keyframe(pg, T, p, n, i, True)
+        out.append(pgm.detect_loop(pg, cam_l, pgc, ICPConfig()))
+    (c, cf, ci), (g, gf, gi) = out
+    assert bool(cf) and bool(gf)
+    for name in ("edge_i", "edge_j", "edge_is_loop", "num_edges", "kf_loop_done"):
+        assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
+    assert float((g.edge_T.cpu() - c.edge_T).abs().max()) < 1e-5
+    assert int(gi.n_closed) == int(ci.n_closed)
+
+
+def test_slam_cfg_mirrors_the_jax_test_config():
+    """slam_cfg is tests/test_slam.make_cfg (this file cannot import that
+    one)."""
+    from tests.test_slam import make_cfg
+    from topfusion_tpu_torch.convert import config_from_reference
+
+    assert slam_cfg() == config_from_reference(make_cfg())

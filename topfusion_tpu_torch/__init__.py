@@ -8,8 +8,12 @@ integrate (``csrc/integrate.cu``, wrapped by ``ops.cuda.integrate``);
 RGB fusion (``step_rgb``); the display (``render``, ``render_normals``,
 ``render_confidence``, ``render_color`` over the hashed-map raycast);
 point-cloud export (``ops.pointcloud``); the dense-volume pipeline
-(``models.pipeline.DensePipeline`` over ``ops.tsdf_dense``); and the
-out-of-core block swap (``ops.swap``, ``models.host_cache.HostBlockCache``).
+(``models.pipeline.DensePipeline`` over ``ops.tsdf_dense``); the
+out-of-core block swap (``ops.swap``, ``models.host_cache.HostBlockCache``);
+the keyframe pose graph with loop closure (``models.posegraph``); the SLAM
+system (``models.slam.SlamSystem``) with its checkpoints, config IO,
+metrics and dataset loaders; and the app
+(``python -m topfusion_tpu_torch.apps.run_fusion``).
 """
 
 from .config import (
@@ -24,6 +28,7 @@ from .config import (
 )
 from .models.block_pipeline import BlockPipeline
 from .models.pipeline import DensePipeline
+from .models.slam import SlamSystem
 
 __version__ = "0.1.0"
 
@@ -38,4 +43,5 @@ __all__ = [
     "PoseGraphConfig",
     "DensePipeline",
     "BlockPipeline",
+    "SlamSystem",
 ]

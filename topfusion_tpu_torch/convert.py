@@ -1,10 +1,11 @@
 """Carry configs and state between the JAX package and the port, without
 importing jax.
 
-The system has no weights: what must carry across is the config tree and
+The system has no weights: what must carry across is the config tree,
 the fusion state (hash table and voxel pool or dense volume, color, pose,
-model maps, visible list, counters), so that a state reached by one
-package can be stepped, rendered and exported by the other.
+model maps, visible list, counters), the pose graph, and a SLAM system's
+buffers and host bookkeeping, so that a state reached by one package can
+be stepped, rendered, optimized and exported by the other.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 from .config import PipelineConfig
 from .models.block_pipeline import BlockState
 from .models.pipeline import DenseState
+from .models.posegraph import PoseGraph
 from .utils.device_info import entry_device
 
 _TUPLE_FIELDS = ("model_points", "model_normals")
@@ -112,3 +114,74 @@ def dense_state_to_numpy(state: DenseState) -> Dict[str, Any]:
     """Every field of a port ``DenseState`` as numpy arrays (model maps
     as tuples of per-level arrays)."""
     return _state_to_numpy(state)
+
+
+def pose_graph_from_numpy(arrays: Mapping[str, Any], device="cuda") -> PoseGraph:
+    """A port ``PoseGraph`` on ``device`` (the card by default, a
+    ``RuntimeError`` where there is none) from a mapping of every
+    PoseGraph field to numpy arrays, e.g. a JAX ``PoseGraph._asdict()``."""
+    return _state_from_numpy(PoseGraph, arrays, device)
+
+
+def pose_graph_to_numpy(pg: PoseGraph) -> Dict[str, Any]:
+    """Every field of a port ``PoseGraph`` as numpy arrays."""
+    return _state_to_numpy(pg)
+
+
+def _as_numpy(x) -> np.ndarray:
+    """A torch tensor or any array (a JAX array, say) as numpy."""
+    return _to_numpy(x) if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _fields_numpy(nt) -> Dict[str, Any]:
+    return {k: (tuple(_as_numpy(x) for x in v) if isinstance(v, tuple) else _as_numpy(v))
+            for k, v in nt._asdict().items()}
+
+
+def _host_values(src) -> Dict[str, Any]:
+    """A SLAM system's host bookkeeping, copied."""
+    return {
+        "odom_poses": [np.array(T) for T in src["odom_poses"]],
+        "kf_odom_poses": [np.array(T) for T in src["kf_odom_poses"]],
+        "kf_for_frame": list(src["kf_for_frame"]),
+        "frame_idx": int(src["frame_idx"]),
+        "loops_closed": int(src["loops_closed"]),
+        "reintegrations": int(src["reintegrations"]),
+    }
+
+
+def slam_state_to_numpy(slam) -> Dict[str, Any]:
+    """What a SLAM system carries between chunks, as numpy and Python
+    values: ``state`` and ``graph`` (field dicts), ``kf_depth_buf``,
+    ``kf_odom_buf``, ``ring`` (depths, poses, latest keyframe; None without
+    a ring) and the host lists and counters.  ``slam`` is a port
+    ``SlamSystem`` or any object with the same attributes (a JAX
+    ``SlamSystem``)."""
+    out = {
+        "state": _fields_numpy(slam.state),
+        "graph": _fields_numpy(slam.graph),
+        "kf_depth_buf": _as_numpy(slam.kf_depth_buf),
+        "kf_odom_buf": _as_numpy(slam.kf_odom_buf),
+        "ring": (tuple(_as_numpy(x) for x in (slam.ring_depths, slam.ring_poses, slam.ring_kf))
+                 if slam.R > 0 else None),
+    }
+    out.update(_host_values(vars(slam)))
+    return out
+
+
+def slam_state_from_numpy(values: Mapping[str, Any], slam) -> None:
+    """Carry ``values`` (as ``slam_state_to_numpy`` returns them, from
+    either package) into the port ``SlamSystem`` ``slam``, on its device;
+    its configuration must have the same capacities."""
+    dev = slam.device
+    slam.state = block_state_from_numpy(values["state"], dev)
+    slam.graph = pose_graph_from_numpy(values["graph"], dev)
+    slam.kf_depth_buf = _to_tensor(values["kf_depth_buf"], dev)
+    slam.kf_odom_buf = _to_tensor(values["kf_odom_buf"], dev)
+    if (values["ring"] is None) != (slam.R == 0):
+        raise ValueError("one system has a re-integration ring and the other not")
+    if slam.R > 0:
+        slam.ring_depths, slam.ring_poses, slam.ring_kf = (
+            _to_tensor(x, dev) for x in values["ring"])
+    for name, v in _host_values(values).items():
+        setattr(slam, name, v)

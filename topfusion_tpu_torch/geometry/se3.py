@@ -72,6 +72,54 @@ def se3_exp(xi: torch.Tensor) -> torch.Tensor:
     return _append_bottom_row(top)
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """R (...,3,3) -> omega (...,3), valid for theta < pi.  atan2(sin, cos)
+    rather than arccos(trace), whose derivative is unbounded at the
+    identity (the pose graph's Jacobians differentiate through this)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    w = torch.stack(
+        [
+            R[..., 2, 1] - R[..., 1, 2],
+            R[..., 0, 2] - R[..., 2, 0],
+            R[..., 1, 0] - R[..., 0, 1],
+        ],
+        dim=-1,
+    )  # = 2 sin(theta) * axis
+    s2 = 0.25 * torch.sum(w * w, dim=-1, keepdim=True)      # sin^2(theta)
+    c = torch.clamp((trace[..., None] - 1.0) * 0.5, -1.0, 1.0)  # cos(theta)
+    small = s2 < _SMALL_THETA2
+    s_safe = torch.sqrt(torch.where(small, torch.ones_like(s2), s2))
+    theta = torch.atan2(s_safe, c)
+    # theta / (2 sin theta); series in sin^2 near 0: 1/2 + s2/12.
+    factor = torch.where(small, 0.5 + true_div(s2, 12.0), theta / (2.0 * s_safe))
+    return factor * w
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """T (...,4,4) -> twist [omega, v] (...,6).  Written without in-place
+    operations, so ``torch.func.jacfwd`` and ``vmap`` trace it."""
+    t = T[..., :3, 3]
+    omega = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(omega * omega, dim=-1, keepdim=True)[..., None]
+    small = theta2 < _SMALL_THETA2
+    theta2_safe = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = torch.sqrt(theta2_safe)
+    a = torch.where(small, 1.0 - true_div(theta2, 6.0), torch.sin(theta) / theta)
+    sinc_half = torch.sin(theta * 0.5) / (theta * 0.5)
+    b = torch.where(small, torch.full_like(theta2, 0.5), 0.5 * sinc_half * sinc_half)
+    K = _hat(omega)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    # V^{-1} = I - K/2 + (1/theta^2)(1 - a/(2b)) K^2
+    coef = torch.where(
+        small,
+        1.0 / 12.0 + true_div(theta2, 720.0),
+        (1.0 - a / (2.0 * b)) / theta2_safe,
+    )
+    Vinv = eye - 0.5 * K + coef * (K @ K)
+    v = (Vinv @ t[..., None])[..., 0]
+    return torch.cat([omega, v], dim=-1)
+
+
 def _append_bottom_row(top: torch.Tensor) -> torch.Tensor:
     """[..., 3, 4] -> [..., 4, 4] with the row [0, 0, 0, 1].  The row is
     made on the tensor's device (writing a Python scalar into a CUDA

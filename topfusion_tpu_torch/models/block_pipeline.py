@@ -186,10 +186,7 @@ class BlockPipeline:
         *vis, vis_overflow = full
         vis = tuple(vis)
 
-        if bm.use_pallas_integrate is False:
-            m, n_vis = integrate_blocks(m, cam, cfg.tsdf, bm, T_int, raw_eff, vis)
-        else:
-            m, n_vis = integrate_blocks_cuda(m, cam, cfg.tsdf, bm, T_int, raw_eff, vis)
+        m, n_vis = self.integrate(m, T_int, raw_eff, vis)
 
         if cfg.tsdf.use_color and rgb is not None:
             m = integrate_color_blocks(
@@ -243,6 +240,22 @@ class BlockPipeline:
         )
         return new_state, aux
 
+    def integrate(self, m: BlockMap, T_wc: torch.Tensor, depth: torch.Tensor, vis):
+        """Fuse ``depth`` (float32 metres) at ``T_wc`` into the visible
+        blocks: the integrate kernel, or its plain version where
+        ``use_pallas_integrate`` is False.  Returns (map, num_visible)."""
+        cfg = self.cfg
+        fn = integrate_blocks if cfg.blockmap.use_pallas_integrate is False else integrate_blocks_cuda
+        return fn(m, cfg.camera, cfg.tsdf, cfg.blockmap, T_wc, depth, vis)
+
+    def shade(self, points: torch.Tensor, normals: torch.Tensor, T_wc: torch.Tensor) -> torch.Tensor:
+        """Phong-shaded uint8 [H, W, 3] image of world-space points and
+        normals seen from ``T_wc``, lit from above and behind the camera."""
+        eye = T_wc[:3, 3]
+        # eye + (0, -1, -1), the offset built on the device.
+        light = eye - torch.arange(3, device=self.device).clamp(max=1).to(torch.float32)
+        return phong_shade(points, normals, light, eye)
+
     # ------------------------------------------------------------------
     def _free_view_raycast(self, state: BlockState, T_wc: torch.Tensor) -> RaycastResult:
         """Raycast from an arbitrary pose, marching only the band that the
@@ -269,10 +282,7 @@ class BlockPipeline:
         else:
             T = torch.as_tensor(T_wc, dtype=torch.float32).to(self.device)
         rc = self._free_view_raycast(state, T)
-        eye = T[:3, 3]
-        # eye + (0, -1, -1), the offset built on the device.
-        light = eye - torch.arange(3, device=self.device).clamp(max=1).to(torch.float32)
-        return phong_shade(rc.points, rc.normals, light, eye)
+        return self.shade(rc.points, rc.normals, T)
 
     def render_normals(self, state: BlockState) -> torch.Tensor:
         """Normal-map view from the tracked pose, uint8 [H, W, 3]."""
