@@ -79,11 +79,26 @@ Phases, each of which must pass (else the exit code is 1):
      from the corrected pose within a median 3 voxels of the scene, 3
      more frames tracked; then ``detect_loop``, ``_optimize_ex`` and
      ``_reint`` timed on (b)'s graph and map, and one chunk profiled;
-     (c) the app as a subprocess, ``--synthetic 60 --synthetic-vga``: exit
-     0, every output file, optimized ATE < 12 mm.
+     (c) the app as a subprocess, ``--synthetic 60 --synthetic-vga --video
+     --orbit-video 8``: exit 0, every output file, optimized ATE < 12 mm,
+     video.gif with a half-size image per chunk and orbit.gif with 8
+     full-size images of the map, some of it covered;
+ 13. ICP one-hot: the orbit of phase 4 with ``icp.gather_mode="onehot"``
+     (the band gather, ``ops/gather_mm.py``): every frame tracked, no reset,
+     ATE < 12 mm, one column-kernel launch per frame, one host sync per
+     step; the correspondences the band drops in one level-0 association
+     (flat count minus onehot count), the largest pose difference from
+     phase 4's flat run, ms per frame, device operations and device time
+     per frame;
+ 14. fy < 0 (the ICL-NUIM convention): the bench configuration with fy
+     negated and the scene rendered through it; one integrate call of the
+     kernel bit-equal to the plain version, then the orbit: every frame
+     tracked, no reset, ATE < 12 mm, one column-kernel launch per frame,
+     and ATE < 1.3 x phase 4's + 0.1 mm (tests/test_negative_fy.py's
+     acceptance).
 
 The kernel's launch count is set to 0 before each of the stepping paths
-(4, 7, 8, the capped sweep of 11, and 12 (a) and (b)) and read after it;
+(4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13 and 14) and read after it;
 the dense path launches no hand-written kernel (its integrate is XLA in
 the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
@@ -146,6 +161,7 @@ SLAM_RING = 32  # reint_ring of the rebuild run
 SLAM_MORE = 3  # frames tracked after the rebuild
 SLAM_APP_FRAMES = 60
 SLAM_APP_TIMEOUT_S = 600
+APP_ORBIT_VIEWS = 8  # --orbit-video of the app's run
 
 
 def bench_config(pool_dtype: str = "int16"):
@@ -351,30 +367,39 @@ def fmt_ms(x: float | None) -> str:
     return f"{x:.4f} ms" if x is not None else "not measured"
 
 
+def integrate_inputs(cfg, frames, poses, device):
+    """The inputs of one integrate call: the map after 3 of ``frames``
+    (plain integrate), allocated for the 4th, with its pose, its depth in
+    metres and its visible set."""
+    import torch
+
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+    from topfusion_tpu_torch.ops.depth import depth_to_meters
+    from topfusion_tpu_torch.ops.tsdf_block import allocate_from_depth, visible_blocks
+
+    cfg = with_plain_integrate(cfg)
+    cam, tc, bm = cfg.camera, cfg.tsdf, cfg.blockmap
+    pipe = BlockPipeline(cfg, device)
+    state, _, _ = run(pipe, pipe.init(), frames[:3])
+    T = torch.as_tensor(poses[3], dtype=torch.float32, device=device)
+    raw = depth_to_meters(frames[3], cfg.preproc.max_sensor_depth)
+    m, _ = allocate_from_depth(state.block_map(), cam, tc, bm, T, raw)
+    return m, T, raw, visible_blocks(m, cam, tc, bm, T, depth=raw)
+
+
 def kernel_vs_plain(frames, poses, device) -> dict:
     """Phase 3.  Returns the int16 result (the bench's pool dtype)."""
     import torch
 
-    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
     from topfusion_tpu_torch.ops.blockmap import decode_tsdf
     from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda, launch_plan
-    from topfusion_tpu_torch.ops.depth import depth_to_meters
-    from topfusion_tpu_torch.ops.tsdf_block import (
-        allocate_from_depth,
-        integrate_blocks,
-        visible_blocks,
-    )
+    from topfusion_tpu_torch.ops.tsdf_block import integrate_blocks
 
     results = {}
     for dtype in ("int16", "float32", "bfloat16"):
-        cfg = with_plain_integrate(bench_config(dtype))
-        pipe = BlockPipeline(cfg, device)
-        state, _, _ = run(pipe, pipe.init(), frames[:3])
+        cfg = bench_config(dtype)
         cam, tc, bm = cfg.camera, cfg.tsdf, cfg.blockmap
-        T = torch.as_tensor(poses[3], dtype=torch.float32, device=device)
-        raw = depth_to_meters(frames[3], cfg.preproc.max_sensor_depth)
-        m, _ = allocate_from_depth(state.block_map(), cam, tc, bm, T, raw)
-        vis = visible_blocks(m, cam, tc, bm, T, depth=raw)
+        m, T, raw, vis = integrate_inputs(cfg, frames, poses, device)
 
         def fresh():
             return m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone())
@@ -522,7 +547,8 @@ def check_tracked(name, frames, gt, state, est, auxes, launches, vector_launches
 
 def main_path(frames, poses, device):
     """Phases 4 and 5.  Returns (pipeline, fused state, [T_wc], kernel
-    launches of the main-path run)."""
+    launches of the main-path run, (device operations, device ms) per
+    frame of the profiled pass)."""
     import torch
 
     from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
@@ -557,8 +583,7 @@ def main_path(frames, poses, device):
     dt = time.perf_counter() - t0
     print(f"throughput: {PASSES * len(frames) / dt:.2f} frames/s over {PASSES} passes "
           f"of {len(frames)} frames ({dt * 1000 / (PASSES * len(frames)):.2f} ms/frame)")
-    profile_pass(pipe, state, frames)
-    return pipe, fused, est, launches
+    return pipe, fused, est, launches, profile_pass(pipe, state, frames)
 
 
 def profiled(fn):
@@ -583,21 +608,23 @@ def profiled(fn):
     return ops, sum(us_by_name.values()) / 1000, wall_ms, us_by_name
 
 
-def profile_pass(pipe, state, frames) -> None:
+def profile_pass(pipe, state, frames) -> tuple:
     """One pass over the frames under the profiler: device operations and
     their summed device time per frame, the device's busy share of the
     pass's wall time (which the profiler's own cost inflates), and the
-    five kernels that take the most device time."""
+    five kernels that take the most device time.  Returns (device
+    operations, device ms) per frame."""
     n = len(frames)
     ops, device_ms, wall_ms, us_by_name = profiled(lambda: run(pipe, state, frames))
     if device_ms == 0.0:
         print("profiled pass: the profiler recorded no device time (not measured)")
-        return
+        return ops / n, None
     print(f"profiled pass: {ops / n:.1f} device ops/frame, device time "
           f"{device_ms / n:.3f} ms/frame, wall {wall_ms / n:.3f} ms/frame, "
           f"device busy share {device_ms / wall_ms:.4f}")
     for name, us in us_by_name.most_common(5):
         print(f"  {us / 1000 / n:8.3f} ms/frame  {name[:100]}")
+    return ops / n, device_ms / n
 
 
 def measure(name: str, fn, repeats: int = RENDER_REPEATS) -> None:
@@ -1263,6 +1290,7 @@ def slam_phase(device) -> dict:
     import numpy as np
     import torch
 
+    from topfusion_tpu_torch.io.gif import gif_frames
     from topfusion_tpu_torch.io.synthetic import SyntheticScene
     from topfusion_tpu_torch.models.posegraph import detect_loop
     from topfusion_tpu_torch.ops.tsdf_block import raycast_blocks
@@ -1351,7 +1379,7 @@ def slam_phase(device) -> dict:
     with tempfile.TemporaryDirectory() as out:
         cmd = [sys.executable, "-m", "topfusion_tpu_torch.apps.run_fusion", "--synthetic",
                str(SLAM_APP_FRAMES), "--synthetic-vga", "--render-every", str(SLAM_CHUNK),
-               "--out", out]
+               "--video", "--orbit-video", str(APP_ORBIT_VIEWS), "--out", out]
         t0 = time.perf_counter()
         res = subprocess.run(cmd, capture_output=True, text=True, timeout=SLAM_APP_TIMEOUT_S,
                              cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -1361,7 +1389,7 @@ def slam_phase(device) -> dict:
         check(res.returncode == 0, f"slam (c): the app failed:\n{res.stderr[-3000:]}")
         names = sorted(os.listdir(out))
         want = ["cloud.ply", "metrics.json", "metrics.jsonl", "render_final.png", "state.npz",
-                "trajectory_odom.txt", "trajectory_opt.txt"]
+                "trajectory_odom.txt", "trajectory_opt.txt", "video.gif", "orbit.gif"]
         print(f"  files: {names}")
         check(all(f in names for f in want), f"slam (c): missing {set(want) - set(names)}")
         check(any(f.startswith("config.") for f in names), "slam (c): no config written")
@@ -1372,7 +1400,196 @@ def slam_phase(device) -> dict:
               f"{summary['ate_opt_m'] * 1000:.3f} mm, {summary['app_fps_total']:.2f} frames/s "
               f"overall, loops {summary['loops_closed']}, device {summary['device']}")
         check(summary["ate_opt_m"] < ATE_LIMIT_M, f"slam (c): optimized ATE {summary['ate_opt_m']} m")
+        # The GIFs: a half-size render per chunk (the chunk is SLAM_CHUNK,
+        # the remainder goes a frame at a time), and the orbit at full size.
+        w, h = cfg.camera.width, cfg.camera.height
+        n_chunks = SLAM_APP_FRAMES // SLAM_CHUNK + SLAM_APP_FRAMES % SLAM_CHUNK
+        video = gif_frames(os.path.join(out, "video.gif"))
+        orbit = gif_frames(os.path.join(out, "orbit.gif"))
+        print(f"  video.gif: {len(video)} images {sorted(set(video))} (width, height, delay "
+              f"in 1/100 s), written in {summary['video_gif_s']:.3f} s; orbit.gif: {len(orbit)} "
+              f"images {sorted(set(orbit))}, rendered in {summary['orbit_render_s']:.3f} s and "
+              f"written in {summary['orbit_gif_s']:.3f} s, mean coverage "
+              f"{summary['orbit_coverage']:.4f}")
+        check(video == [(-(-w // 2), -(-h // 2), 20)] * n_chunks,
+              f"slam (c): video.gif holds {video}, not {n_chunks} half-size images")
+        check(orbit == [(w, h, 10)] * APP_ORBIT_VIEWS,
+              f"slam (c): orbit.gif holds {orbit}, not {APP_ORBIT_VIEWS} full-size images")
+        check(summary["orbit_coverage"] > 0, "slam (c): the orbit renders show nothing")
     return {"slam": a["launches"], "slam_reintegrate": b_launches}
+
+
+def count_syncs(fn):
+    """(fn(), the host syncs PyTorch's sync debug mode detected in it)."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum(str(w.message).startswith("called a synchronizing") for w in rec)
+
+
+def max_pose_diff(a, b) -> tuple:
+    """The largest translation (m) and rotation (degrees, from the skew
+    part of Ra^T Rb) between two lists of poses on the card."""
+    import math
+
+    import torch
+
+    dt = dr = 0.0
+    for Ta, Tb in zip(a, b):
+        dt = max(dt, float((Ta[:3, 3] - Tb[:3, 3]).abs().max()))
+        M = Ta[:3, :3].double().T @ Tb[:3, :3].double()
+        w = torch.stack([M[2, 1] - M[1, 2], M[0, 2] - M[2, 0], M[1, 0] - M[0, 1]])
+        dr = max(dr, math.degrees(math.asin(min(float(w.norm()) / 2.0, 1.0))))
+    return dt, dr
+
+
+def association_audit(pipe, frames) -> dict:
+    """One pass of the onehot pipeline over the frames with every nearest
+    association made twice at the same inputs, onehot and flat (the only
+    difference between them is the band): how many there were, how many
+    lost correspondences to the band and how many, how many gave a G that
+    is not bit-equal to flat's, and how many counted more than flat's.  It syncs the host per association
+    (a diagnostic pass, not the measured one)."""
+    import torch
+
+    from topfusion_tpu_torch.ops import icp as ticp
+
+    orig = ticp.build_normal_equations
+    a = {"associations": 0, "with drops": 0, "dropped": 0, "most dropped": 0,
+         "flat count there": 0, "G differs": 0, "more than flat": 0, "first frame": None,
+         "first iteration": None}
+    where = {"frame": 0, "iteration": 0}
+
+    def both(*args, **kw):
+        G, n = orig(*args, **kw)
+        if not kw["bilinear"]:
+            G_f, n_f = orig(*args, **{**kw, "gather_mode": "flat"})
+            d = int(n_f) - int(n)
+            a["associations"] += 1
+            a["dropped"] += d
+            differs = not torch.equal(G, G_f)
+            a["G differs"] += differs
+            a["more than flat"] += d < 0
+            if differs and a["first frame"] is None:
+                a["first frame"], a["first iteration"] = where["frame"], where["iteration"]
+            if d > 0:
+                a["with drops"] += 1
+                if d > a["most dropped"]:
+                    a["most dropped"], a["flat count there"] = d, int(n_f)
+        where["iteration"] += 1
+        return G, n
+
+    ticp.build_normal_equations = both
+    try:
+        state = pipe.init()
+        for i, f in enumerate(frames):
+            where.update(frame=i, iteration=0)
+            state, _ = pipe.step(state, f)
+    finally:
+        ticp.build_normal_equations = orig
+    return a
+
+
+def onehot_phase(frames, poses, flat_est, flat_profile, device) -> int:
+    """Phase 13: the orbit through ICP's onehot gather mode.  Returns the
+    kernel launches of the run."""
+    import torch
+
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+
+    cfg = bench_config("int16")
+    cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, gather_mode="onehot"))
+    icp = cfg.icp
+    pipe = BlockPipeline(cfg, device)
+    state, est, auxes, launches, vector_launches = counted_run(pipe, frames)
+    check_tracked("ICP one-hot", frames, poses, state, est, auxes, launches, vector_launches)
+    dt, dr = max_pose_diff(est, flat_est)
+    same = all(torch.equal(a, b) for a, b in zip(est, flat_est))
+
+    # The same orbit in the take mode: its bilinear (polish) iterations go
+    # through the same take quad as the onehot mode's, its nearest ones
+    # read the same elements as flat's.
+    take = BlockPipeline(dataclasses.replace(
+        cfg, icp=dataclasses.replace(icp, gather_mode="take")), device)
+    _, take_est, _ = run(take, take.init(), frames)
+    take_is_flat = all(torch.equal(a, b) for a, b in zip(take_est, flat_est))
+    take_is_onehot = all(torch.equal(a, b) for a, b in zip(take_est, est))
+    dt_take, dr_take = max_pose_diff(take_est, flat_est)
+
+    audit = association_audit(pipe, frames)
+
+    (_, aux), syncs = count_syncs(lambda: pipe.step(state, frames[-1]))
+    ms, ops, device_ms, peak = timed_passes(pipe, state, frames, 1)
+    flat_ops, flat_device_ms = flat_profile
+    print(f"  every nearest association of a pass (margin {icp.onehot_v_margin}) also made flat at "
+          f"the same inputs: {audit['associations']} associations, {audit['with drops']} with "
+          f"correspondences dropped by the band ({audit['dropped']} in all, at most "
+          f"{audit['most dropped']} of {audit['flat count there']} in one), "
+          f"{audit['G differs']} with G not bit-equal to flat's (the first at frame "
+          f"{audit['first frame']}, iteration {audit['first iteration']} of the frame's ICP)")
+    print(f"  poses against the flat run of phase 4: bit-identical {same}, largest difference "
+          f"{dt * 1000:.6f} mm and {dr:.6f} degrees; the take-mode run against it: bit-identical "
+          f"{take_is_flat}, {dt_take * 1000:.6f} mm and {dr_take:.6f} degrees; onehot against "
+          f"take: bit-identical {take_is_onehot}; host syncs in one step {syncs}")
+    print(f"  onehot step: {ms:.2f} ms/frame ({1000 / ms:.2f} frames/s) over 1 pass; profiled pass: "
+          f"{ops:.1f} device ops/frame, device time {device_ms:.3f} ms/frame (flat, phase 5: "
+          f"{flat_ops:.1f} and {fmt_ms(flat_device_ms)}); peak memory {peak / 2**20:.1f} MiB")
+    check(audit["associations"] == len(frames) * (sum(icp.iters) - icp.bilinear_polish_iters),
+          f"ICP one-hot: {audit['associations']} nearest associations audited")
+    check(audit["more than flat"] == 0, "ICP one-hot: the band admitted what flat rejects")
+    check(syncs == 1 and bool(aux.ok), f"ICP one-hot: a step synced the host {syncs} times")
+    return launches
+
+
+def negative_fy_phase(poses, flat_est, device) -> int:
+    """Phase 14: the bench configuration with fy negated (the ICL-NUIM
+    convention), the scene rendered through that camera.  Returns the
+    kernel launches of the run."""
+    import torch
+
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.tsdf_block import integrate_blocks
+
+    cfg = bench_config("int16")
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, fy=-cfg.camera.fy))
+    cam, tc, bm = cfg.camera, cfg.tsdf, cfg.blockmap
+    frames = render_frames(cfg, poses, device)
+
+    m, T, raw, vis = integrate_inputs(cfg, frames, poses, device)
+    before = integrate_blocks_cuda.vector_launches
+    mk, nk = integrate_blocks_cuda(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()),
+                                   cam, tc, bm, T, raw, vis)
+    mp, np_ = integrate_blocks(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()),
+                               cam, tc, bm, T, raw, vis)
+    torch.cuda.synchronize()
+    updated = int((mp.weight != m.weight).sum())
+    equal = torch.equal(mk.tsdf, mp.tsdf) and torch.equal(mk.weight, mp.weight)
+    print(f"fy = {cam.fy}: integrate, num_visible kernel {int(nk)} plain {int(np_)}, {updated} "
+          f"voxels updated, pool bit-equal {equal}")
+    check(integrate_blocks_cuda.vector_launches == before + 1, "fy < 0: the column kernel was not launched")
+    check(int(nk) == int(np_) > 1000 and updated > 0, "fy < 0: trivial comparison")
+    check(equal, "fy < 0: kernel and plain pools differ")
+
+    pipe = BlockPipeline(cfg, device)
+    state, est, auxes, launches, vector_launches = counted_run(pipe, frames)
+    ate_neg = check_tracked("fy < 0 orbit", frames, poses, state, est, auxes, launches,
+                            vector_launches)
+    ate_pos = ate_rmse([T.cpu().numpy() for T in flat_est], poses, align=False)
+    print(f"  ATE fy < 0 {ate_neg * 1000:.3f} mm against fy > 0 (phase 4) {ate_pos * 1000:.3f} mm; "
+          f"limit 1.3 x {ate_pos * 1000:.3f} + 0.1 mm")
+    check(ate_neg < 1.3 * ate_pos + 1e-4, f"fy < 0: ATE {ate_neg} m against {ate_pos} m at fy > 0")
+    return launches
 
 
 def main() -> int:
@@ -1414,7 +1631,7 @@ def main() -> int:
         k = kernel_vs_plain(frames, poses, device)
         generic_path_check(frames, poses, device)
         took("phase 3, kernel against plain")
-        pipe, fused, est, step_launches = main_path(frames, poses, device)
+        pipe, fused, est, step_launches, flat_profile = main_path(frames, poses, device)
         took("phases 4-5, main path")
         display_phase(pipe, fused, device)
         took("phase 6, display")
@@ -1438,6 +1655,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update(slam_phase(device))
         took("phase 12, SLAM")
+        launches["step_icp_onehot"] = onehot_phase(frames, poses, est, flat_profile, device)
+        took("phase 13, ICP one-hot")
+        launches["step_negative_fy"] = negative_fy_phase(poses, est, device)
+        took("phase 14, fy < 0")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

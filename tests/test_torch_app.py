@@ -30,6 +30,7 @@ from topfusion_tpu.utils.metrics import MetricsLogger as JaxLogger
 from topfusion_tpu_torch.apps.run_fusion import write_png
 from topfusion_tpu_torch.convert import config_from_reference
 from topfusion_tpu_torch.io import datasets as tds
+from topfusion_tpu_torch.io.gif import MAX_COLOR_ERROR, MAX_GREY_ERROR, gif_frames
 from topfusion_tpu_torch.io.trajectory import load_tum_trajectory, save_tum_trajectory
 from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
 from topfusion_tpu_torch.models.posegraph import make_pose_graph
@@ -111,10 +112,13 @@ def test_tum_trajectory_files_match_jax(tmp_path):
 # ----------------------------------------------------------------- the app
 def test_app_on_icl_sequence(sequences, tmp_path):
     """tests/test_icl_format.py's run of the app, through the port's app on
-    the CPU: the same overrides, millimetre odometry, every file written."""
+    the CPU: the same overrides, millimetre odometry, every file written;
+    with ``--video --orbit-video 3``, a half-size render per chunk in
+    video.gif and 3 full-size views of the map in orbit.gif."""
     out = str(tmp_path / "run")
     r = run(["-m", "topfusion_tpu_torch.apps.run_fusion", "--sequence", sequences["icl"],
              "--out", out, "--device", "cpu", "--chunk", "4", "--render-every", "4",
+             "--video", "--orbit-video", "3",
              "--set", "icp.iters=4,3,2", "--set", "blockmap.capacity=8192",
              "--set", "blockmap.max_visible_blocks=4096", "--set", "tsdf.voxel_size=0.01",
              "--set", "tsdf.trunc_dist=0.04"], timeout=600)
@@ -124,8 +128,34 @@ def test_app_on_icl_sequence(sequences, tmp_path):
     assert summary["ate_odom_m"] < 0.005, summary
     assert summary["frames"] == 12 and summary["resets"] == 0 and summary["device"] == "cpu"
     for name in ("trajectory_odom.txt", "trajectory_opt.txt", "state.npz", "cloud.ply",
-                 "metrics.jsonl", "config.yaml", "render_final.png", "render_00008.png"):
+                 "metrics.jsonl", "config.yaml", "render_final.png", "render_00008.png",
+                 "video.gif", "orbit.gif"):
         assert os.path.exists(os.path.join(out, name)), name
+    # The GIFs: 3 chunks at half of 320x240 shown 200 ms each, 3 orbit views
+    # at 320x240 shown 100 ms each; shaded, not blank.
+    assert gif_frames(os.path.join(out, "video.gif")) == [(160, 120, 20)] * 3
+    assert gif_frames(os.path.join(out, "orbit.gif")) == [(320, 240, 10)] * 3
+    import imageio.v3 as iio
+
+    # Shaded surface pixels are grey (and stay grey in the GIF); the
+    # background gradient is not.  The video's views and the orbit's
+    # first (the tracked pose) show the map.
+    def surface(frames):
+        return ((frames[..., 0] == frames[..., 1]) & (frames[..., 1] == frames[..., 2])).mean(
+            axis=(1, 2))
+
+    video = iio.imread(os.path.join(out, "video.gif"), index=None, mode="RGB")
+    orbit = iio.imread(os.path.join(out, "orbit.gif"), index=None, mode="RGB")
+    assert (surface(video) > 0.3).all() and surface(orbit)[0] > 0.3, (surface(video), surface(orbit))
+    assert all(f.std() > 5 for f in [*video, *orbit])
+    assert 0.1 < summary["orbit_coverage"] <= 1.0
+    # The second chunk's preview is the PNG written after it, within the
+    # GIF palette's error (render_final.png is not: it is full size).
+    png = iio.imread(os.path.join(out, "render_00008.png")).astype(np.int64)
+    gif = iio.imread(os.path.join(out, "video.gif"), index=1, mode="RGB").astype(np.int64)
+    grey = (png[..., 0] == png[..., 1]) & (png[..., 1] == png[..., 2])
+    assert np.abs(gif - png)[grey].max() <= MAX_GREY_ERROR
+    assert np.abs(gif - png).max() <= MAX_COLOR_ERROR
     # The trajectory carries the sequence's timestamps; the config and the
     # checkpoint load into the JAX package.
     jts, _ = j_load_tum(os.path.join(out, "trajectory_odom.txt"))

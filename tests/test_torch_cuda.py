@@ -204,6 +204,26 @@ def test_in_kernel_pose_inverse_matches_plain(mapped, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_kernel_matches_plain_under_negative_fy(mapped, dtype):
+    """The ICL convention fy < 0 (the kernel projects with the signed fy
+    and gates on |fy|): the map, with the 4th frame rendered through the
+    camera with fy negated, fused by the kernel bit-equal to the plain
+    version."""
+    m, T, _, _, _ = mapped
+    cfg = small_cfg(dtype)
+    cfg = dataclasses.replace(cfg, camera=dataclasses.replace(cfg.camera, fy=-cfg.camera.fy))
+    m = as_pool(m, cfg)
+    raw = depth_to_meters(SyntheticScene().render_depth_mm(cfg.camera, T))
+    vis = ttb.visible_blocks(m, cfg.camera, cfg.tsdf, cfg.blockmap, T, depth=raw)
+    k, p, nk, np_, counts = kernel_and_plain(m, cfg, T, raw, vis)
+    assert counts == (1, 1)
+    assert nk == np_ > 100
+    assert int((p.weight != m.weight).sum()) > 1000
+    assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+
+
+@pytest.mark.cuda
 def test_kernel_rejects_bad_inputs(mapped):
     m, T, raw, vis, _ = mapped
     cfg = small_cfg()
@@ -308,6 +328,40 @@ def test_step_syncs_the_host_once(mapped):
     syncs = [str(w.message) for w in rec
              if str(w.message).startswith("called a synchronizing")]
     assert len(syncs) == 1, syncs
+
+
+@pytest.mark.cuda
+def test_onehot_step_syncs_the_host_once(mapped):
+    """ICP's onehot gather mode adds no host sync to the step: the band
+    gather has no data-dependent shape."""
+    _, _, _, _, (pipe, state, frame) = mapped
+    pipe = BlockPipeline(dataclasses.replace(pipe.cfg, icp=dataclasses.replace(
+        pipe.cfg.icp, gather_mode="onehot")), pipe.device)
+    (_, aux), syncs = count_syncs(lambda: pipe.step(state, frame))
+    assert len(syncs) == 1, syncs
+    assert bool(aux.ok)
+
+
+@pytest.mark.cuda
+def test_banded_gather_on_the_card_matches_the_cpu():
+    """The band gather on the card equals the CPU's for the same inputs,
+    off-map and int32-extreme indices among them: values and in_band to
+    the bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    from topfusion_tpu_torch.ops.gather_mm import banded_projective_gather
+
+    g = torch.Generator().manual_seed(5)
+    model = torch.randn(480, 640, 6, generator=g)
+    v = (torch.arange(240)[:, None] * 2 + torch.randint(-40, 40, (240, 320), generator=g))
+    u = torch.randint(-8, 648, (240, 320), generator=g)
+    u[::7, ::5] = -2**31
+    v[::11, ::3] = 2**31 - 1
+    u, v = u.to(torch.int32), v.to(torch.int32)
+    out_c, ok_c = banded_projective_gather(model, u, v, v_margin=32)
+    out_g, ok_g = banded_projective_gather(model.cuda(), u.cuda(), v.cuda(), v_margin=32)
+    assert ok_c.any() and not ok_c.all()
+    assert torch.equal(ok_g.cpu(), ok_c) and torch.equal(out_g.cpu(), out_c)
 
 
 # ----------------------------------------------------------------- display, color

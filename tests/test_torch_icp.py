@@ -1,6 +1,6 @@
-"""Port vs JAX package: the ICP normal equations in every ported gather
-mode, the damped solve, and coarse-to-fine tracking against a model map
-the JAX pipeline made."""
+"""Port vs JAX package: the ICP normal equations in every gather mode,
+the damped solve, and coarse-to-fine tracking against a model map the
+JAX pipeline made."""
 
 import dataclasses
 
@@ -46,7 +46,8 @@ def track_inputs():
             npl(state.model_points), npl(state.model_normals), npl(cp), npl(cn))
 
 
-MODES = [("flat", False), ("flat", True), ("take", False), ("take", True)]
+MODES = [("flat", False), ("flat", True), ("take", False), ("take", True),
+         ("onehot", False), ("onehot", True)]
 
 
 @pytest.mark.parametrize("gather_mode,bilinear", MODES)
@@ -73,11 +74,33 @@ def test_normal_equations_match_jax(track_inputs, gather_mode, bilinear, level):
 
 
 def test_onehot_mode_not_ported(track_inputs):
+    """The onehot mode with a band that drops correspondences, at level 0
+    (margin 0 cuts at the edge between its two 32-row tiles; the default
+    margin 32 makes every band of the 80x64 map the whole map) and a pose
+    tilted 1.2 pixels off the model's: the same inlier count as the JAX
+    package, below the flat count, and G within
+    test_normal_equations_match_jax's tolerance.  At the default margin
+    the port's onehot and flat modes give the same G to the bit."""
     jc, tc, T_model, mp, mn, cp, cn = track_inputs
-    with pytest.raises(NotImplementedError, match="hardware gather"):
-        ticp.build_normal_equations(
-            tc.camera, t(T_model), t(T_model), t(cp[0]), t(cn[0]), t(mp[0]), t(mn[0]),
-            0.1, 0.8, gather_mode="onehot")
+    level = 0
+    xi = np.array([0.02, -0.003, 0.002, 0.003, -0.002, 0.004], np.float32)
+    T_est = np.asarray(j_se3_exp(jnp.asarray(xi))) @ T_model
+    cam_j, cam_t = jc.camera.at_level(level), tc.camera.at_level(level)
+    thr = (jc.icp.dist_threshold, jc.icp.angle_threshold_cos)
+    Gj, nj = jicp.build_normal_equations(
+        cam_j, jnp.asarray(T_est), jnp.asarray(T_model), jnp.asarray(cp[level]),
+        jnp.asarray(cn[level]), jnp.asarray(mp[level]), jnp.asarray(mn[level]),
+        *thr, gather_mode="onehot", onehot_v_margin=0)
+    args = (cam_t, t(T_est), t(T_model), t(cp[level]), t(cn[level]), t(mp[level]),
+            t(mn[level]), *thr)
+    Gt, nt = ticp.build_normal_equations(*args, gather_mode="onehot", onehot_v_margin=0)
+    Gf, nf = ticp.build_normal_equations(*args, gather_mode="flat")
+    Gd, nd = ticp.build_normal_equations(*args, gather_mode="onehot")
+    assert int(nt) == int(nj) > 100
+    assert int(nt) < int(nf)
+    Gj = np.asarray(Gj)
+    np.testing.assert_allclose(Gt.numpy(), Gj, rtol=1e-5, atol=1e-5 * np.abs(Gj).max())
+    assert int(nd) == int(nf) and torch.equal(Gd, Gf)
 
 
 @pytest.mark.parametrize("count", [5, 400])
@@ -96,7 +119,7 @@ def test_solve_increment_matches_jax(track_inputs, count):
     assert not bool(oks) and torch.equal(xs, torch.zeros(6))
 
 
-@pytest.mark.parametrize("variant", ["flat_polish", "take_bilinear_stride1"])
+@pytest.mark.parametrize("variant", ["flat_polish", "take_bilinear_stride1", "onehot_polish"])
 def test_icp_track_matches_jax(track_inputs, variant):
     """Tracking from the model pose to the 5th frame: poses within 1e-6 m
     and 1e-6 rad (measured <= 2e-7; the port allows 1e-4): the
@@ -106,6 +129,8 @@ def test_icp_track_matches_jax(track_inputs, variant):
     icfg = jc.icp
     if variant == "take_bilinear_stride1":
         icfg = dataclasses.replace(icfg, gather_mode="take", bilinear=True, level0_stride=1)
+    if variant == "onehot_polish":
+        icfg = dataclasses.replace(icfg, gather_mode="onehot")
     tcfg_icp = config_from_reference(dataclasses.replace(jc, icp=icfg)).icp
     rj = jicp.icp_track(jc.camera, icfg, jnp.asarray(T_model), jnp.asarray(T_model),
                         [jnp.asarray(x) for x in cp], [jnp.asarray(x) for x in cn],

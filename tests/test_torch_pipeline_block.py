@@ -165,16 +165,31 @@ def test_integrate_paths_agree_on_cpu(runs):
 
 
 @pytest.mark.parametrize("change", ["icp_onehot"])
-def test_unported_options_raise(change):
-    """What the port still lacks says so by name (raycast model maps,
-    color and the dense point cloud, once here, are ported: see
-    raycast_runs below, tests/test_torch_color.py and
-    tests/test_torch_pointcloud.py)."""
+def test_unported_options_raise(runs, change):
+    """ICP's onehot gather mode, which the port once refused, steps as the
+    JAX package's: 3 frames from the JAX state after CARRY_AT frames,
+    each started from the JAX state carried into the port, with poses
+    within test_port_follows_jax_per_frame's 0.25 mm and 0.01 degrees and
+    the same blocks allocated and visible."""
     cfg = make_cfg()
     cfg = dataclasses.replace(cfg, icp=dataclasses.replace(cfg.icp, gather_mode="onehot"))
-    pipe = BlockPipeline(config_from_reference(cfg), device="cpu")
-    with pytest.raises(NotImplementedError, match="onehot"):
-        pipe.step(pipe.init(), torch.zeros((64, 80), dtype=torch.int32))
+    jp = JaxPipeline(cfg)
+    tp = BlockPipeline(config_from_reference(cfg), device="cpu")
+    js = runs["jp"].init()._replace(**{
+        k: (tuple(jnp.asarray(x) for x in v) if isinstance(v, tuple) else jnp.asarray(v))
+        for k, v in runs["carried"].items()})
+    for f in runs["frames"][CARRY_AT:CARRY_AT + 3]:
+        ts, ta = tp.step(block_state_from_numpy(jax_state_numpy(js), device="cpu"),
+                         torch.from_numpy(f))
+        js, ja = jp.step(js, jnp.asarray(f))
+        Tj, Tt = np.asarray(js.T_wc), ts.T_wc.numpy()
+        assert bool(ta.ok) and bool(ja.ok)
+        assert np.abs(Tt[:3, 3] - Tj[:3, 3]).max() <= 2.5e-4
+        assert rot_deg(Tt[:3, :3], Tj[:3, :3]) <= 0.01
+        assert int(ta.num_inliers) > 100
+        for name in ("num_blocks", "blocks_allocated", "num_visible", "blocks_dropped",
+                     "visible_overflow"):
+            assert int(getattr(ta, name)) == int(getattr(ja, name)), name
 
 
 def raycast_cfg(guided):

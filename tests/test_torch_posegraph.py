@@ -48,9 +48,9 @@ ICP_CFG = ICPConfig()
 SCENE = SyntheticScene()
 
 
-def port(pg_cfg):
+def port(pg_cfg, icp_cfg=ICP_CFG):
     """The port's (camera at level 1, posegraph, icp) configs."""
-    c = config_from_reference(PipelineConfig(camera=CAM, icp=ICP_CFG, posegraph=pg_cfg))
+    c = config_from_reference(PipelineConfig(camera=CAM, icp=icp_cfg, posegraph=pg_cfg))
     return c.camera.at_level(1), c.posegraph, c.icp
 
 
@@ -172,29 +172,32 @@ FAR = PoseGraphConfig(max_keyframes=16, max_edges=64, loop_candidate_window=2,
 @functools.lru_cache(maxsize=None)
 def loops(case: str):
     """detect_loop of both packages on tests/test_posegraph.py's revisit
-    (8 keyframes 15 cm out and back) or far walk (6 keyframes 20 cm apart):
-    (JAX result, port result, keyframe poses)."""
-    cfg = REVISIT if case == "revisit" else FAR
-    if case == "revisit":
-        xs = [0.05 * i if i < 4 else 0.05 * (7 - i) for i in range(8)]
-    else:
+    (8 keyframes 15 cm out and back; ``revisit_onehot`` verifies with ICP's
+    onehot gather mode, so the band gather runs under ``torch.func.vmap``)
+    or far walk (6 keyframes 20 cm apart): (JAX result, port result,
+    keyframe poses)."""
+    cfg = FAR if case == "far" else REVISIT
+    icp_cfg = ICPConfig(gather_mode="onehot") if case == "revisit_onehot" else ICP_CFG
+    if case == "far":
         xs = [0.2 * i for i in range(6)]
+    else:
+        xs = [0.05 * i if i < 4 else 0.05 * (7 - i) for i in range(8)]
     jg, _ = build(cfg, xs)
-    want = jax.jit(lambda g: jpg.detect_loop(g, CAM_L, cfg, ICP_CFG))(jg)
-    cam_l, tcfg, ticp = port(cfg)
+    want = jax.jit(lambda g: jpg.detect_loop(g, CAM_L, cfg, icp_cfg))(jg)
+    cam_l, tcfg, ticp = port(cfg, icp_cfg)
     got = tpg.detect_loop(carry(jg), cam_l, tcfg, ticp)
     return want, got, [kf_maps(x)[0] for x in xs]
 
 
-@pytest.mark.parametrize("case", ["revisit", "far"])
+@pytest.mark.parametrize("case", ["revisit", "far", "revisit_onehot"])
 def test_detect_loop_matches_jax(case):
     (jg, jfound, jinfo), (tg, tfound, tinfo), _ = loops(case)
-    assert bool(tfound) == bool(jfound) == (case == "revisit")
+    assert bool(tfound) == bool(jfound) == (case != "far")
     assert_graphs_equal(tg, jg, float_atol=1e-5, desc_pixels=0)
     assert int(tinfo.n_closed) == int(jinfo.n_closed)
     edge_rows = CAM_L.height // 2 + CAM_L.width // 2 - 1
     assert abs(int(tinfo.inliers) - int(jinfo.inliers)) <= edge_rows
-    if case == "revisit":
+    if case != "far":
         assert float(tinfo.residual) < 1e-3 and float(jinfo.residual) < 1e-3
     else:
         assert int(tinfo.inliers) == -1 and float(tinfo.residual) == float("inf")

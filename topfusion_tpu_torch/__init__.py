@@ -12,8 +12,10 @@ point-cloud export (``ops.pointcloud``); the dense-volume pipeline
 out-of-core block swap (``ops.swap``, ``models.host_cache.HostBlockCache``);
 the keyframe pose graph with loop closure (``models.posegraph``); the SLAM
 system (``models.slam.SlamSystem``) with its checkpoints, config IO,
-metrics and dataset loaders; and the app
-(``python -m topfusion_tpu_torch.apps.run_fusion``).
+metrics and dataset loaders; ICP's onehot gather mode over the band
+gather (``ops.gather_mm``); and the app
+(``python -m topfusion_tpu_torch.apps.run_fusion``) with its GIF outputs
+(``io.gif``).
 """
 
 from .config import (

@@ -14,16 +14,20 @@ CPU) and writes:
   out_dir/render_final.png        final render in --render-mode
   out_dir/render_color.png        fused-color render (--rgb)
   out_dir/render_*.png            half-size display renders (--render-every)
+  out_dir/video.gif               a half-size display render per chunk (--video)
+  out_dir/orbit.gif               the final map from N poses around it (--orbit-video N)
 
 The loop is chunked: ``--chunk`` frames per ``process_chunk`` call (about
 a second of frames by default, rounded to the keyframe cadence), one host
-fetch per chunk.  PNGs are written by a small zlib encoder, so the app
-needs no image library.
+fetch per chunk.  PNGs are written by a small zlib encoder and GIFs by
+``io/gif.py``, so the app needs no image library.
 
 Usage:
   python -m topfusion_tpu_torch.apps.run_fusion --synthetic 90 --out /tmp/run
   python -m topfusion_tpu_torch.apps.run_fusion --sequence /data/fr1_desk \\
       --out /tmp/fr1desk --set tsdf.voxel_size=0.005 --render-every 30
+  python -m topfusion_tpu_torch.apps.run_fusion --synthetic 90 --out /tmp/run \\
+      --video --orbit-video 36
 """
 
 from __future__ import annotations
@@ -121,10 +125,15 @@ def main(argv=None) -> int:
                     help="save a half-size display render every N frames")
     ap.add_argument("--no-posegraph", action="store_true",
                     help="odometry only (no keyframes/loop closure)")
+    ap.add_argument("--video", action="store_true",
+                    help="write video.gif: a half-size display render per chunk")
     ap.add_argument("--render-mode", default="grey",
                     choices=("grey", "normals", "confidence", "color"),
                     help="shading of render_final.png: phong grey, normal "
                     "colors, fusion-confidence heatmap, or fused voxel color")
+    ap.add_argument("--orbit-video", type=int, default=0, metavar="N",
+                    help="after the run, render the final map from N poses "
+                    "orbiting the reconstructed geometry -> orbit.gif")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: the card; cpu runs "
                     "on the CPU)")
@@ -133,6 +142,8 @@ def main(argv=None) -> int:
     import torch
 
     from ..config import CameraConfig
+    from ..geometry.viewpath import map_centroid, orbit_path
+    from ..io.gif import write_gif
     from ..io.trajectory import ate_rmse
     from ..models.slam import SlamSystem
     from ..ops.pointcloud import extract_pointcloud_blocks, save_ply
@@ -219,7 +230,7 @@ def main(argv=None) -> int:
         config_name = "config.json"
     save_config(os.path.join(args.out, config_name), cfg)
 
-    slam = SlamSystem(cfg, render_in_chunk=bool(args.render_every), device=device)
+    slam = SlamSystem(cfg, render_in_chunk=bool(args.video or args.render_every), device=device)
     metrics = MetricsLogger(os.path.join(args.out, "metrics.jsonl"))
 
     print(f"warmup on {device} (the CUDA build and every call of the loop)...")
@@ -235,6 +246,7 @@ def main(argv=None) -> int:
     frames_after_first = 0
     done = 0
     next_render = 0
+    video_frames = []
     for depth_chunk, rgb_chunk in chunks():
         if args.max_frames and done >= args.max_frames:
             break
@@ -265,6 +277,8 @@ def main(argv=None) -> int:
             t_after_first = time.perf_counter()
         else:
             frames_after_first += n
+        if args.video:
+            video_frames.append(slam.last_render[::2, ::2].cpu().numpy())
         if args.render_every and done > next_render:
             next_render = done + args.render_every - 1
             write_png(os.path.join(args.out, f"render_{done:05d}.png"),
@@ -290,6 +304,31 @@ def main(argv=None) -> int:
     pc = extract_pointcloud_blocks(slam.state.block_map(), cfg.tsdf, cfg.blockmap)
     n_pts = save_ply(os.path.join(args.out, "cloud.ply"), pc)
     print(f"extracted {n_pts} surface points -> cloud.ply")
+
+    if args.video and video_frames:
+        t0 = time.perf_counter()
+        write_gif(os.path.join(args.out, "video.gif"), video_frames, fps=5)
+        summary["video_gif_s"] = time.perf_counter() - t0
+        print(f"{len(video_frames)}-frame render video -> video.gif")
+
+    if args.orbit_video:
+        t0 = time.perf_counter()
+        bm = cfg.blockmap.block_size * cfg.tsdf.voxel_size
+        center = map_centroid(slam.state.block_coords.cpu().numpy(),
+                              int(slam.state.num_blocks), bm)
+        path = orbit_path(center, slam.state.T_wc.cpu().numpy(), args.orbit_video)
+        orbit_frames = [slam.pipe.render(slam.state, T).cpu().numpy() for T in path]
+        t1 = time.perf_counter()
+        write_gif(os.path.join(args.out, "orbit.gif"), orbit_frames, fps=10)
+        # The share of the views that shows the map: shaded pixels are
+        # grey, the background gradient is not (any non-black pixel, as
+        # apps/run_fusion.py counts, is every pixel).
+        shown = np.stack(orbit_frames)
+        hit = float(((shown[..., 0] == shown[..., 1]) & (shown[..., 1] == shown[..., 2])).mean())
+        summary.update(orbit_coverage=hit, orbit_render_s=t1 - t0,
+                       orbit_gif_s=time.perf_counter() - t1)
+        print(f"{len(orbit_frames)}-pose free-view orbit -> orbit.gif "
+              f"(mean coverage {hit:.0%})")
 
     if args.rgb:
         write_png(os.path.join(args.out, "render_color.png"),

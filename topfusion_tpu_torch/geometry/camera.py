@@ -15,6 +15,14 @@ from ..config import CameraConfig
 from ..utils.numerics import true_div
 
 
+def intrinsics_matrix(cam: CameraConfig, dtype=torch.float32, device=None) -> torch.Tensor:
+    """The 3x3 pinhole matrix [[fx, 0, cx], [0, fy, cy], [0, 0, 1]]."""
+    return torch.tensor(
+        [[cam.fx, 0.0, cam.cx], [0.0, cam.fy, cam.cy], [0.0, 0.0, 1.0]],
+        dtype=dtype, device=device,
+    )
+
+
 def project(
     cam: CameraConfig, points: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -14,6 +14,7 @@ import torch
 from ..config import CameraConfig
 from ..geometry.camera import pixel_grid
 from ..geometry.se3 import se3_exp
+from ..utils.device_info import entry_device
 from ..utils.numerics import true_div
 
 
@@ -227,3 +228,24 @@ def orbit_trajectory(
         shift = max_shift * amp[3:]
         poses.append(_exp_pose(np.concatenate([ang, shift])))
     return poses
+
+
+def make_sequence(
+    cam: CameraConfig,
+    n_frames: int,
+    scene: SyntheticScene | None = None,
+    seed: int = 0,
+    device="cuda",
+    **orbit_kw,
+) -> Tuple[List[np.ndarray], List[np.ndarray], SyntheticScene]:
+    """(u16 depth frames as numpy, ground-truth poses, scene) of an
+    ``orbit_trajectory``, rendered on ``device`` (the card unless the
+    caller names another)."""
+    dev = entry_device(device)
+    scene = scene or SyntheticScene()
+    poses = orbit_trajectory(n_frames, seed=seed, **orbit_kw)
+    depths = [
+        scene.render_depth_mm(cam, torch.as_tensor(T, dtype=torch.float32, device=dev)).cpu().numpy()
+        for T in poses
+    ]
+    return depths, poses, scene

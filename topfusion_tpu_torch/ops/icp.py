@@ -10,10 +10,12 @@ call is ``torch.linalg.eigvalsh`` for ``obs_ratio``, which on the card
 synchronizes to check its result.
 
 Gather modes: ``flat`` (the default; here a row gather of the
-concatenated 8-channel map, nearest or bilinear) and ``take`` (plain
-indexing, the semantic reference).  ``onehot`` is not ported: it exists
-only because the TPU has no hardware gather (ops/gather_mm.py in the
-JAX package); the GPU gathers natively.
+concatenated 6-channel map, nearest or bilinear), ``take`` (plain
+indexing, the semantic reference) and ``onehot`` (nearest association
+through ``ops/gather_mm.banded_projective_gather``, which drops
+correspondences displaced vertically beyond ``onehot_v_margin``; its
+bilinear iterations, the polish among them, go through ``take`` as in
+the JAX package).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from ..geometry.se3 import (
     se3_inverse,
     transform_points,
 )
+from .gather_mm import banded_projective_gather
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -85,17 +88,12 @@ def build_normal_equations(
     angle_cos_thresh: float,
     bilinear: bool = False,
     gather_mode: str = "take",
+    onehot_v_margin: int = 32,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One projective-association pass -> 7x7 Gram matrix + inlier count.
 
     ``G[:6, :6] = JtJ``, ``G[:6, 6] = Jtr``, ``G[6, 6] = r^T r``.
     """
-    if gather_mode not in ("flat", "take"):
-        raise NotImplementedError(
-            f"gather_mode={gather_mode!r}: the onehot MXU gather exists only "
-            "because the TPU has no hardware gather; the GPU port has "
-            "'flat' and 'take'"
-        )
     h, w = model_points.shape[:2]
     curr_valid = _any_nonzero(curr_points)
 
@@ -156,6 +154,16 @@ def build_normal_equations(
                            _lerp(n00, n01, n10, n11, fu, fv), model_normals[vn, un])
         nq_w, nq_norm = _normalized(nq_w)
         model_valid = _any_nonzero(q_w) & (nq_norm > 1e-6)
+    elif gather_mode == "onehot":
+        # Rounded with no clip, as the JAX package: the band gather gates
+        # off-image and non-finite indices itself.
+        un = torch.round(uf).to(torch.int32)
+        vn = torch.round(vf).to(torch.int32)
+        cat = torch.cat([model_points, model_normals], dim=-1)
+        gathered, band_ok = banded_projective_gather(cat, un, vn, v_margin=onehot_v_margin)
+        q_w = gathered[..., :3]
+        nq_w = gathered[..., 3:]
+        model_valid = band_ok & _any_nonzero(q_w)
     else:
         un = torch.clamp(torch.round(uf).to(torch.int32), 0, w - 1).long()
         vn = torch.clamp(torch.round(vf).to(torch.int32), 0, h - 1).long()
@@ -252,6 +260,7 @@ def icp_track(
                 cam_l, T, T_model, cp, cn, mp, mn,
                 cfg.dist_threshold, cfg.angle_threshold_cos,
                 bilinear=bilinear_l, gather_mode=cfg.gather_mode,
+                onehot_v_margin=cfg.onehot_v_margin,
             )
             xi, step_ok = _solve_increment(
                 G, count, cfg, min_corresp=max(8, cfg.min_corresp // 4 ** level)

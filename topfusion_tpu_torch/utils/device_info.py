@@ -40,14 +40,26 @@ def nvidia_smi_name_power() -> str:
     return res.stdout.strip()
 
 
-def device_banner() -> str:
+def device_banner(verbose: bool = False) -> str:
     """torch version, torch.version.cuda, the CUDA devices, and the
-    nvidia-smi name and power limit."""
+    nvidia-smi name and power limit; ``verbose`` adds each card's compute
+    capability, memory and multiprocessor count."""
     lines = [f"torch {torch.__version__}, CUDA {torch.version.cuda}"]
     if torch.cuda.is_available():
         for i in range(torch.cuda.device_count()):
-            lines.append(f"  [cuda:{i}] {torch.cuda.get_device_name(i)}")
+            desc = f"  [cuda:{i}] {torch.cuda.get_device_name(i)}"
+            if verbose:
+                p = torch.cuda.get_device_properties(i)
+                desc += (f" (sm_{p.major}{p.minor}, {p.total_memory / 2**30:.1f} GiB, "
+                         f"{p.multi_processor_count} multiprocessors)")
+            lines.append(desc)
         lines.append(nvidia_smi_name_power())
     else:
         lines.append("  no CUDA device")
     return "\n".join(lines)
+
+
+def print_device_info(verbose: bool = False) -> None:
+    """Print ``device_banner()``; ``verbose`` adds each card's compute
+    capability, memory and multiprocessor count."""
+    print(device_banner(verbose))
