@@ -95,10 +95,37 @@ Phases, each of which must pass (else the exit code is 1):
      kernel bit-equal to the plain version, then the orbit: every frame
      tracked, no reset, ATE < 12 mm, one column-kernel launch per frame,
      and ATE < 1.3 x phase 4's + 0.1 mm (tests/test_negative_fy.py's
-     acceptance).
+     acceptance);
+ 15. the sharded block map (``parallel.ShardedBlockPipeline``, one process
+     per shard, started by spawn): (a) a world of one NCCL process over
+     the orbit: every frame tracked, the trajectory and every state field
+     bit-identical to phase 4's, one column-kernel launch per frame, the
+     kernel bit-equal to the plain version on the shard's pool, the
+     composited render bit-equal to the single-device march with its
+     nearest-voxel weight gate, shaded, that march against the scene's
+     exact depth (asserted as in phase 6), and against
+     ``BlockPipeline.render``, whose ranged march and trilinear gate
+     differ (printed);
+     (b) a world of 4 gloo processes sharing the card (gloo takes the
+     card's tensors as they are) over the orbit: every frame tracked on every
+     rank, ATE < 12 mm, poses within 1 mm and 1e-2 of phase 4's, the
+     ranks' poses, model maps and renders identical, no block on two
+     shards, the block count within 5% of phase 4's, one launch per frame
+     per rank, the kernel bit-equal to plain on each rank's local pool;
+     (c) on the same world, the first 32 frames of phase 11's sweep out
+     and back, uncapped and then with phase 11's capacity split over the
+     shards and a ``ShardedHostCache`` per shard: more blocks than 1.2 x
+     that capacity, no block dropped, blocks to the hosts and back, live +
+     host >= 0.95 N, ATE <= 1.2 x the uncapped sharded run's + 0.2 mm,
+     one launch per frame per rank; each world prints ms/frame,
+     collective calls and bytes per frame and host syncs per step, and
+     the world of 1 device operations and device time per frame (a
+     profiled pass; not in the world of 4, whose four processes
+     time-slice the card).
 
 The kernel's launch count is set to 0 before each of the stepping paths
-(4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13 and 14) and read after it;
+(4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13, 14 and, in each
+shard's process, 15 (a), (b) and the capped sweep of (c)) and read after it;
 the dense path launches no hand-written kernel (its integrate is XLA in
 the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
@@ -1067,8 +1094,9 @@ def run_sweep(cfg, frames, device, cache=None) -> dict:
     return r
 
 
-def swap_phase(device) -> int:
-    """Phase 11.  Returns the kernel launches of the capped sweep."""
+def swap_phase(device) -> tuple:
+    """Phase 11.  Returns the kernel launches of the capped sweep, and the
+    sweep (ground truth, frames, capped capacity) for phase 15 (c)."""
     import torch
 
     from topfusion_tpu_torch.io.trajectory import ate_rmse
@@ -1161,7 +1189,7 @@ def swap_phase(device) -> int:
     check(restored_back > 0, "capped sweep: no restore on the return leg")
     check(launches == len(frames), f"capped sweep: {launches} launches for {len(frames)} frames")
     check(vector == launches, "capped sweep: did not take the column kernel")
-    return launches
+    return launches, dict(gt=gt, frames=frames, cap=cap)
 
 
 def slam_config(**posegraph):
@@ -1592,6 +1620,329 @@ def negative_fy_phase(poses, flat_est, device) -> int:
     return launches
 
 
+SHARDS = 4  # the gloo world of phase 15 (b) and (c), sharing the one card
+# Phase 15 (c) sweeps the first SHARDED_SWEEP_FWD frames of phase 11's
+# corridor out and back (phase 11's 40 + 39 took 53 s there with the
+# uncapped run; 32 out still map more than 1.2 x phase 11's capacity).
+SHARDED_SWEEP_FWD = 32
+
+
+def state_digest(state) -> dict:
+    """sha256 of every tensor of a block state, by field (model maps by
+    level), to compare states across processes to the bit."""
+    import hashlib
+
+    import torch
+
+    out = {}
+    for name, v in state._asdict().items():
+        for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+            out[f"{name}[{i}]" if isinstance(v, tuple) else name] = hashlib.sha256(
+                raw.tobytes()).hexdigest()
+    return out
+
+
+def sharded_orbit(axis, poses, frames_np) -> dict:
+    """Phase 15 (a) and (b) on one shard: the orbit through
+    ``ShardedBlockPipeline`` at the bench configuration from a fresh state,
+    with the integrate kernel's launch counts set to 0 just before and
+    read just after; then one timed pass, one profiled pass (in a world
+    of one: where four processes time-slice one card, a shard's device
+    time has no clear meaning) and one step under the sync counter from
+    the fused state; the integrate kernel
+    against its plain version on this shard's local pool; and the
+    composited render.  Returns what the parent checks and prints."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.ops.blockmap import EMPTY_KEY
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.depth import depth_to_meters
+    from topfusion_tpu_torch.ops.tsdf_block import integrate_blocks, visible_blocks
+    from topfusion_tpu_torch.parallel import ShardedBlockPipeline
+    from topfusion_tpu_torch.utils.device_info import mesh_banner
+
+    clock = [time.perf_counter()]
+    seconds = {}
+
+    def lap(what):
+        torch.cuda.synchronize()
+        clock.append(time.perf_counter())
+        seconds[what] = clock[-1] - clock[-2]
+
+    dev = axis.device
+    banner = mesh_banner(axis)
+    cfg = bench_config("int16")
+    frames = [torch.from_numpy(f).to(dev) for f in frames_np]
+    pipe = ShardedBlockPipeline(cfg, axis, dev)
+    n = len(frames)
+    lap("setup")
+
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    integrate_blocks_cuda.vector_launches = 0
+    calls0, bytes0 = axis.calls, axis.bytes
+    state, est, auxes = run(pipe, pipe.init(), frames)
+    torch.cuda.synchronize()
+    launches, vector = integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches
+    calls, nbytes = (axis.calls - calls0) / n, (axis.bytes - bytes0) / n
+    out = dict(
+        rank=axis.rank, banner=banner, launches=launches, vector=vector,
+        calls_per_frame=calls, bytes_per_frame=nbytes,
+        poses=[T.cpu().numpy() for T in est],
+        ok=[bool(a.ok) for a in auxes], resets=int(state.resets),
+        dropped=sum(int(a.blocks_dropped) for a in auxes),
+        num_blocks=int(auxes[-1].num_blocks), local_blocks=int(state.num_blocks),
+        digest=state_digest(state),
+        keys=state.bucket_keys[state.bucket_keys != EMPTY_KEY].cpu().numpy(),
+        finite=all(bool(torch.isfinite(p).all()) for p in state.model_points),
+    )
+
+    lap("counted run")
+    fused = state
+    run(pipe, fused, frames)
+    lap("timed pass")
+    out["ms_per_frame"] = seconds["timed pass"] * 1000 / n
+    out["ops_per_frame"] = out["device_ms_per_frame"] = None
+    if axis.size == 1:
+        ops, device_ms, _, _ = profiled(lambda: run(pipe, fused, frames))
+        out["ops_per_frame"], out["device_ms_per_frame"] = ops / n, (device_ms / n if device_ms else None)
+    _, out["syncs_per_step"] = count_syncs(lambda: pipe.step(fused, frames[-1]))
+    lap("profiled pass and sync count" if axis.size == 1 else "sync count")
+
+    # The kernel against its plain version on this shard's local pool, at
+    # the last frame's pose and depth (not counted: the main path's run is over).
+    lc = pipe.local_cfg
+    T = fused.T_wc
+    raw = depth_to_meters(frames[-1], cfg.preproc.max_sensor_depth)
+    m = fused.block_map()
+    vis = visible_blocks(m, lc.camera, lc.tsdf, lc.blockmap, T, depth=raw)
+    args = (lc.camera, lc.tsdf, lc.blockmap, T, raw, vis)
+    k, nk = integrate_blocks_cuda(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    p, np_ = integrate_blocks(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    torch.cuda.synchronize()
+    out["kernel_equal"] = (torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+                           and int(nk) == int(np_))
+    out["kernel_visible"] = int(nk)
+    out["kernel_max_abs_err"] = float((k.tsdf.float() - p.tsdf.float()).abs().max())
+    lap("kernel against plain")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img = pipe.render(fused)
+    torch.cuda.synchronize()
+    out["render_ms"] = (time.perf_counter() - t0) * 1000
+    out["render"] = img.cpu().numpy()
+    lap("render")
+    if axis.size == 1:
+        # The single-device march with the same gate, shaded: the render
+        # of one shard must be it, bit for bit; and its depth against the
+        # scene's exact depth.
+        from topfusion_tpu_torch.io.synthetic import SyntheticScene
+        from topfusion_tpu_torch.models.block_pipeline import BlockPipeline, shade
+        from topfusion_tpu_torch.ops.tsdf_block import raycast_blocks
+
+        rc = raycast_blocks(m, lc.camera, lc.tsdf, lc.blockmap, lc.raycast, T,
+                            weight_gate="nearest")
+        out["render_is_single_device_march"] = torch.equal(img, shade(rc.points, rc.normals, T))
+        gt = SyntheticScene().render_depth(lc.camera, T)
+        mask = rc.hit & (gt > 0) & (gt < 1.5)
+        out["raycast_cover"] = float(mask.float().mean())
+        out["raycast_median_err"] = float(torch.abs(rc.depth - gt)[mask].median())
+        out["block_render"] = BlockPipeline(cfg, dev).render(fused).cpu().numpy()
+    out["seconds"] = {k: round(v, 2) for k, v in seconds.items()}
+    return out
+
+
+def sharded_sweep(axis, frames_np, cap: int, evict: int, restore: int) -> dict:
+    """Phase 15 (c) on one shard: the corridor sweep of phase 11 through
+    ``ShardedBlockPipeline``, uncapped (2^16 blocks over the shards) and
+    then with ``cap`` blocks over the shards and a ``ShardedHostCache``
+    per shard, the kernel's launches counted over the capped run."""
+    import torch
+
+    from topfusion_tpu_torch.models.host_cache import ShardedHostCache
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.parallel import ShardedBlockPipeline
+
+    dev = axis.device
+    frames = [torch.from_numpy(f).to(dev) for f in frames_np]
+    out = {}
+    for name, capacity in (("uncapped", 1 << 16), ("capped", cap)):
+        pipe = ShardedBlockPipeline(sweep_config(capacity), axis, dev)
+        cache = (ShardedHostCache(pipe, evict_batch=evict, restore_batch=restore)
+                 if name == "capped" else None)
+        state = pipe.init()
+        poses, auxes, restored, evicted = [], [], [], []
+        torch.cuda.synchronize()
+        integrate_blocks_cuda.launches = 0
+        integrate_blocks_cuda.vector_launches = 0
+        t0 = time.perf_counter()
+        for f in frames:
+            if cache is not None:
+                n0 = cache.n_host_blocks
+                T_pred = poses[-1] if poses else state.T_wc.cpu().numpy()
+                state = cache.before_step(state, T_pred)
+                restored.append(n0 - cache.n_host_blocks)
+            state, aux = pipe.step(state, f)
+            poses.append(state.T_wc.cpu().numpy())
+            auxes.append(aux)
+            if cache is not None:
+                n0 = cache.n_host_blocks
+                state = cache.after_step(state)
+                evicted.append(cache.n_host_blocks - n0)
+        torch.cuda.synchronize()
+        out[name] = dict(
+            seconds=time.perf_counter() - t0, poses=poses,
+            ok=[bool(a.ok) for a in auxes], resets=int(state.resets),
+            dropped=sum(int(a.blocks_dropped) for a in auxes),
+            total=int(auxes[-1].num_blocks), live=int(state.num_blocks),
+            launches=integrate_blocks_cuda.launches, vector=integrate_blocks_cuda.vector_launches,
+            host=cache.n_host_blocks if cache else 0, restored=restored, evicted=evicted,
+        )
+    return out
+
+
+def world4_body(axis, poses, frames_np, sweep_np, cap, evict, restore) -> dict:
+    """Phase 15 (b) and then (c), in one world of ``SHARDS`` gloo processes."""
+    return dict(orbit=sharded_orbit(axis, poses, frames_np),
+                sweep=sharded_sweep(axis, sweep_np, cap, evict, restore))
+
+
+def sharded_phase(poses, frames, phase4, sweep) -> dict:
+    """Phase 15.  ``phase4``: the main path's trajectory, state digest,
+    block count and profiled (operations, device ms) per frame;
+    ``sweep``: phase 11's ground truth, frames and capped capacity.
+    Returns the kernel launches of the sharded paths."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.parallel import spawn_world
+
+    frames_np = [f.cpu().numpy() for f in frames]
+    n = len(frames)
+
+    def report(tag, o):
+        dm, ops = o["device_ms_per_frame"], o["ops_per_frame"]
+        print(f"  {tag}: {o['ms_per_frame']:.2f} ms/frame, device ops/frame "
+              f"{'not measured' if ops is None else f'{ops:.1f}'}, "
+              f"device time {'not measured' if dm is None else f'{dm:.3f} ms/frame'}, "
+              f"{o['calls_per_frame']:.1f} collective calls and {o['bytes_per_frame']:.0f} B/frame, "
+              f"{o['syncs_per_step']} host syncs per step, "
+              f"render {o['render_ms']:.2f} ms; kernel launches {o['launches']} "
+              f"({o['vector']} of the column kernel); local blocks {o['local_blocks']}; kernel "
+              f"vs plain on the local pool over {o['kernel_visible']} visible entries: "
+              f"{'bit-equal' if o['kernel_equal'] else 'DIFFERENT'}; seconds {o['seconds']}")
+
+    # (a) A world of one NCCL process: the single-device step, bit for bit.
+    t0 = time.perf_counter()
+    (a,) = spawn_world(sharded_orbit, 1, "nccl", "cuda", args=(poses, frames_np), timeout_s=600)
+    print(f"15 (a), world of 1 ({time.perf_counter() - t0:.1f} s with the spawn): {a['banner']}")
+    report("rank 0", a)
+    ate = ate_rmse(a["poses"], poses, align=False)
+    same_poses = all(np.array_equal(x, y) for x, y in zip(a["poses"], phase4["poses"]))
+    diff = sorted(k for k in phase4["digest"] if a["digest"][k] != phase4["digest"][k])
+    print(f"  ATE {ate * 1000:.3f} mm; against phase 4: trajectory bit-identical {same_poses}, "
+          f"state fields that differ: {diff or 'none'}")
+    check(all(a["ok"]) and a["resets"] == 0, "15 (a): a frame failed to track")
+    check(same_poses, "15 (a): the trajectory differs from phase 4's")
+    check(not diff, f"15 (a): the state differs from phase 4's in {diff}")
+    check(a["launches"] == n and a["vector"] == n, f"15 (a): {a['launches']} launches for {n} frames")
+    check(a["kernel_equal"], "15 (a): kernel and plain differ on the local pool")
+    img, ref = a["render"].astype(np.int32), a["block_render"].astype(np.int32)
+    same = float((img == ref).all(axis=-1).mean())
+    close = float((np.abs(img - ref) <= 1).all(axis=-1).mean())
+    print(f"  sharded render (full march, nearest-voxel weight gate): the single-device march "
+          f"with that gate, shaded, bit for bit {a['render_is_single_device_march']}; against "
+          f"BlockPipeline.render (ranged march, trilinear gate) {same:.5f} of the pixels equal, "
+          f"{close:.5f} within one grey level; the march covers {a['raycast_cover']:.4f} of the "
+          f"image against the exact depth, median |error| {a['raycast_median_err'] * 1000:.3f} mm")
+    check(a["render_is_single_device_march"], "15 (a): the render is not the single-device march")
+    voxel = bench_config().tsdf.voxel_size
+    check(a["raycast_cover"] > 0.3, "15 (a): the sharded raycast covers too little")
+    check(a["raycast_median_err"] < 2 * voxel, "15 (a): sharded raycast depth error >= 2 voxels")
+
+    # (b) and (c): a world of SHARDS gloo processes sharing the card.
+    # Phase 11's sweep is out and back: out index i is at position i.
+    legs = list(range(SHARDED_SWEEP_FWD)) + list(range(SHARDED_SWEEP_FWD - 2, -1, -1))
+    gt_sw = [sweep["gt"][i] for i in legs]
+    frames_sw, cap = [sweep["frames"][i] for i in legs], sweep["cap"]
+    evict, restore = SWEEP_EVICT_BATCH // SHARDS, SWEEP_RESTORE_BATCH // SHARDS
+    t0 = time.perf_counter()
+    ranks = spawn_world(world4_body, SHARDS, "gloo", "cuda", timeout_s=900,
+                        args=(poses, frames_np, [f.cpu().numpy() for f in frames_sw], cap,
+                              evict, restore))
+    print(f"15 (b), world of {SHARDS} ({time.perf_counter() - t0:.1f} s with (c) and the spawn): "
+          f"{ranks[0]['orbit']['banner']}")
+    orbit = [r["orbit"] for r in ranks]
+    for o in orbit:
+        report(f"rank {o['rank']}", o)
+    ate4 = ate_rmse(orbit[0]["poses"], poses, align=False)
+    dt, dr = max_pose_diff([torch.as_tensor(T) for T in orbit[0]["poses"]],
+                           [torch.as_tensor(T) for T in phase4["poses"]])
+    keys = np.concatenate([o["keys"] for o in orbit])
+    total = orbit[0]["num_blocks"]
+    same_maps = all(o["digest"][k] == orbit[0]["digest"][k] for o in orbit
+                    for k in o["digest"] if k.startswith("model_"))
+    img = orbit[0]["render"]
+    lit = float((img[..., 0] == img[..., 2]).mean())
+    print(f"  ATE {ate4 * 1000:.3f} mm; poses against phase 4: at most {dt * 1000:.4f} mm and "
+          f"{dr:.5f} degrees; blocks {total} over the shards ({sum(o['local_blocks'] for o in orbit)} "
+          f"local, {len(np.unique(keys))} unique keys) against {phase4['num_blocks']} in phase 4; "
+          f"model maps bit-identical over the shards {same_maps}; render lit share {lit:.4f}")
+    for o in orbit:
+        check(all(o["ok"]) and o["resets"] == 0, f"15 (b): rank {o['rank']} failed to track")
+        check(o["launches"] == n and o["vector"] == n,
+              f"15 (b): rank {o['rank']}: {o['launches']} launches for {n} frames")
+        check(o["kernel_equal"], f"15 (b): rank {o['rank']}: kernel and plain differ")
+        check(o["finite"], f"15 (b): rank {o['rank']}: non-finite model map")
+        check(all(np.array_equal(x, y) for x, y in zip(o["poses"], orbit[0]["poses"])),
+              f"15 (b): rank {o['rank']}'s poses differ from rank 0's")
+        check(np.array_equal(o["render"], img), f"15 (b): rank {o['rank']}'s render differs")
+    check(ate4 < ATE_LIMIT_M, f"15 (b): ATE {ate4} m")
+    check(dt < 1e-3 and np.abs(np.stack(orbit[0]["poses"])[:, :3, :3]
+                               - np.stack(phase4["poses"])[:, :3, :3]).max() < 1e-2,
+          "15 (b): poses beyond 1 mm / 1e-2 of phase 4's")
+    check(same_maps, "15 (b): the shards' model maps differ")
+    check(len(np.unique(keys)) == len(keys) == total, "15 (b): a block is on two shards")
+    check(abs(total - phase4["num_blocks"]) <= 0.05 * phase4["num_blocks"],
+          f"15 (b): {total} blocks against {phase4['num_blocks']} in phase 4")
+    check(0.3 < lit <= 1.0 and img.std() > 1.0, "15 (b): the composited render is trivial")
+
+    # (c) The out-of-core sweep of phase 11 on the world of SHARDS.
+    sw = [r["sweep"] for r in ranks]
+    un, cp = [s["uncapped"] for s in sw], [s["capped"] for s in sw]
+    total_sw = un[0]["total"]
+    ate_ref = ate_rmse(un[0]["poses"], gt_sw, align=False)
+    ate_cap = ate_rmse(cp[0]["poses"], gt_sw, align=False)
+    host = sum(c["host"] for c in cp)
+    live = sum(c["live"] for c in cp)
+    n_sw = len(frames_sw)
+    back = sum(sum(c["restored"][SHARDED_SWEEP_FWD:]) for c in cp)
+    print(f"15 (c), sweep of {SHARDED_SWEEP_FWD} frames out and {n_sw - SHARDED_SWEEP_FWD} back "
+          f"(phase 11's first {SHARDED_SWEEP_FWD}): uncapped N = {total_sw} blocks over the shards, ATE "
+          f"{ate_ref * 1000:.3f} mm, {n_sw / un[0]['seconds']:.2f} frames/s; capped at {cap} "
+          f"({cap // SHARDS} a shard, evict {evict}, restore {restore}): ATE {ate_cap * 1000:.3f} mm, "
+          f"dropped {cp[0]['dropped']}, live {live} + host {host} = {live + host}, "
+          f"{sum(sum(c['evicted']) for c in cp)} evicted, {sum(sum(c['restored']) for c in cp)} "
+          f"restored ({back} on the return leg), {n_sw / cp[0]['seconds']:.2f} frames/s; launches "
+          f"per rank {[c['launches'] for c in cp]}")
+    for s in un + cp:
+        check(all(s["ok"]) and s["resets"] == 0, "15 (c): a frame failed to track")
+    check(total_sw > 1.2 * cap, f"15 (c): premise: {total_sw} blocks <= 1.2 x {cap}")
+    check(cp[0]["dropped"] == 0, f"15 (c): {cp[0]['dropped']} blocks dropped despite swapping")
+    check(host > 0 and back > 0, "15 (c): nothing went to the host or came back")
+    check(live + host >= int(0.95 * total_sw), f"15 (c): live + host {live + host} < 0.95 N")
+    check(ate_cap <= 1.2 * ate_ref + 2e-4, f"15 (c): ATE {ate_cap} m against {ate_ref} m uncapped")
+    check(all(c["launches"] == n_sw and c["vector"] == n_sw for c in cp),
+          "15 (c): not one column-kernel launch per frame on every shard")
+    return {"step_sharded_world1": a["launches"],
+            "step_sharded_world4": sum(o["launches"] for o in orbit),
+            "step_sharded_sweep_world4": sum(c["launches"] for c in cp)}
+
+
 def main() -> int:
     try:
         import torch
@@ -1632,6 +1983,8 @@ def main() -> int:
         generic_path_check(frames, poses, device)
         took("phase 3, kernel against plain")
         pipe, fused, est, step_launches, flat_profile = main_path(frames, poses, device)
+        phase4 = dict(poses=[T.cpu().numpy() for T in est], digest=state_digest(fused),
+                      num_blocks=int(fused.num_blocks))
         took("phases 4-5, main path")
         display_phase(pipe, fused, device)
         took("phase 6, display")
@@ -1650,7 +2003,7 @@ def main() -> int:
         dense_phase(frames, rgbs, poses, device)
         took("phase 10, dense")
         torch.cuda.empty_cache()
-        launches["step_out_of_core_sweep"] = swap_phase(device)
+        launches["step_out_of_core_sweep"], sweep = swap_phase(device)
         took("phase 11, out-of-core sweep")
         torch.cuda.empty_cache()
         launches.update(slam_phase(device))
@@ -1659,6 +2012,9 @@ def main() -> int:
         took("phase 13, ICP one-hot")
         launches["step_negative_fy"] = negative_fy_phase(poses, est, device)
         took("phase 14, fy < 0")
+        torch.cuda.empty_cache()
+        launches.update(sharded_phase(poses, frames, phase4, sweep))
+        took("phase 15, sharded block map")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -8,6 +8,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 import topfusion_tpu.config as jcfg
 import topfusion_tpu_torch
@@ -115,3 +116,19 @@ def test_port_sources_name_no_jax():
     pat = re.compile(r"^\s*(import jax|from jax|import topfusion_tpu\b|from topfusion_tpu\b)", re.M)
     for p in PORT_DIR.rglob("*.py"):
         assert not pat.search(p.read_text()), p
+
+
+@pytest.mark.parametrize("value", [None, True, False, "flase"])
+def test_resolve_pallas_integrate(value):
+    """The kernel-or-plain choice: on the CPU the JAX package's choice for
+    every value (None resolves to XLA there, the plain version here); on
+    a CUDA device None picks the kernel.  A typo left a string picks the
+    kernel, as the JAX package's ``bool()`` picks Pallas."""
+    jb = dataclasses.replace(jcfg.BlockMapConfig(), use_pallas_integrate=value)
+    tb = dataclasses.replace(tcfg.BlockMapConfig(), use_pallas_integrate=value)
+    want_cpu = jcfg.resolve_pallas_integrate(jb)
+    assert tcfg.resolve_pallas_integrate(tb, "cpu") is want_cpu
+    assert tcfg.resolve_pallas_integrate(tb, torch.device("cpu")) is want_cpu
+    want_cuda = value is None or want_cpu
+    assert tcfg.resolve_pallas_integrate(tb, "cuda") is want_cuda
+    assert tcfg.resolve_pallas_integrate(tb, torch.device("cuda", 0)) is want_cuda

@@ -1,8 +1,9 @@
 """The port's CUDA integrate kernels on the card (the column kernel for
 blocks of 8^3, the per-voxel kernel for any other size), held to the bit
 against their plain PyTorch version over the whole pool; and the display,
-color, point-cloud, dense-volume and block-swap paths on the card: their
-host syncs, and their agreement with the same calls on the CPU.
+color, point-cloud, dense-volume, block-swap and sharded-map paths on the
+card: their host syncs, and their agreement with the same calls on the
+CPU.
 
 This file imports no jax, so it runs on a GPU machine without it
 (``tests/conftest.py`` imports jax, hence ``--noconftest``)::
@@ -861,6 +862,73 @@ def test_detect_loop_card_matches_cpu():
         assert torch.equal(getattr(g, name).cpu(), getattr(c, name)), name
     assert float((g.edge_T.cpu() - c.edge_T).abs().max()) < 1e-5
     assert int(gi.n_closed) == int(ci.n_closed)
+
+
+# ----------------------------------------------------------------- sharded map
+@pytest.mark.cuda
+def test_sharded_world_of_one_is_block_pipeline_on_the_card():
+    """A world of one NCCL shard on the card steps exactly as
+    ``BlockPipeline`` with the integrate kernel (state, model maps and aux
+    bit-identical over 4 frames, one kernel launch a frame for each), and
+    a warm sharded step syncs the host once, as the single-device step
+    does (ICP's eigvalsh): the NCCL collectives add no sync."""
+    if not torch.cuda.is_available():
+        pytest.skip("the sharded card path runs on an NVIDIA GPU")
+    from torch_sharded_world import card_world_of_one
+    from topfusion_tpu_torch.parallel import spawn_world
+
+    cfg = small_cfg()
+    cfg = dataclasses.replace(cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=None))
+    (out,) = spawn_world(card_world_of_one, 1, "nccl", "cuda", args=(cfg, 4), timeout_s=300)
+    assert out["same"] == [True] * 4
+    assert out["launches"] == 8
+    assert out["ok"] and len(out["syncs"]) == 1, out["syncs"]
+
+
+@pytest.mark.cuda
+def test_gloo_world_on_the_card_reduces_card_tensors():
+    """Two gloo shards sharing the card: every collective of the map axis
+    takes the shards' CUDA tensors as they are and gives the right value
+    back on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("the sharded card path runs on an NVIDIA GPU")
+    from torch_sharded_world import card_collectives
+    from topfusion_tpu_torch.parallel import spawn_world
+
+    for out in spawn_world(card_collectives, 2, "gloo", "cuda", timeout_s=300):
+        assert out["devices"] == ["cuda"] * 6
+        for name in ("psum", "pmin", "gather", "gather_bool", "gram"):
+            assert out[name], name
+        assert out["calls"] == 5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+def test_kernel_matches_plain_on_a_shard_local_pool(dtype):
+    """The integrate kernel on one shard's local pool (shard 1 of 4: its
+    own blocks, allocated with the ownership filter over three frames) is
+    bit-equal to the plain version, as on a whole map."""
+    if not torch.cuda.is_available():
+        pytest.skip("the CUDA integrate kernel runs only on an NVIDIA GPU")
+    from topfusion_tpu_torch.parallel.block_sharded import _shard_cfg
+
+    dev = torch.device("cuda")
+    cfg = _shard_cfg(small_cfg(pool_dtype=dtype), 4)
+    bm, shard = cfg.blockmap, (1, 4)
+    poses = orbit_trajectory(4, max_angle_deg=4.0, max_shift=0.04, seed=3)
+    scene = SyntheticScene()
+    m = tbm.make_block_map(bm, device=dev)
+    for T in poses:
+        T = torch.as_tensor(T, device=dev)
+        raw = depth_to_meters(scene.render_depth_mm(cfg.camera, T))
+        m, _ = ttb.allocate_from_depth(m, cfg.camera, cfg.tsdf, bm, T, raw, shard=shard)
+        vis = ttb.visible_blocks(m, cfg.camera, cfg.tsdf, bm, T, depth=raw)
+        k, p, nk, np_, counts = kernel_and_plain(m, cfg, T, raw, vis)
+        assert torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+        assert nk == np_ > 0 and counts == (1, 1)
+        m = p
+    owned = tbm._bucket_owner(m.block_coords[: int(m.num_blocks)], bm.capacity, shard)[1]
+    assert bool(owned.all())
 
 
 def test_slam_cfg_mirrors_the_jax_test_config():

@@ -151,17 +151,22 @@ def test_reset_on_garbage_frame():
 
 
 def test_integrate_paths_agree_on_cpu(runs):
-    """use_pallas_integrate False (plain) and None (the kernel wrapper,
-    plain on CPU tensors) give the same step."""
+    """use_pallas_integrate False (plain), None (plain on the CPU) and True
+    (the kernel wrapper, plain on CPU tensors) give the same step."""
     cfg = make_cfg()
-    plain = BlockPipeline(config_from_reference(dataclasses.replace(
-        cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=False))),
-        device="cpu")
+
+    def pipe(value):
+        return BlockPipeline(config_from_reference(dataclasses.replace(
+            cfg, blockmap=dataclasses.replace(cfg.blockmap, use_pallas_integrate=value))),
+            device="cpu")
+
     st = block_state_from_numpy(runs["carried"], device="cpu")
     f = torch.from_numpy(runs["frames"][CARRY_AT])
-    a, _ = plain.step(st, f)
+    a, _ = pipe(False).step(st, f)
     b, _ = runs["tp"].step(st, f)
-    assert torch.equal(a.tsdf, b.tsdf) and torch.equal(a.T_wc, b.T_wc)
+    c, _ = pipe(True).step(st, f)
+    for x in (b, c):
+        assert torch.equal(a.tsdf, x.tsdf) and torch.equal(a.T_wc, x.T_wc)
 
 
 @pytest.mark.parametrize("change", ["icp_onehot"])

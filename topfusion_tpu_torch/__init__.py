@@ -13,9 +13,11 @@ out-of-core block swap (``ops.swap``, ``models.host_cache.HostBlockCache``);
 the keyframe pose graph with loop closure (``models.posegraph``); the SLAM
 system (``models.slam.SlamSystem``) with its checkpoints, config IO,
 metrics and dataset loaders; ICP's onehot gather mode over the band
-gather (``ops.gather_mm``); and the app
+gather (``ops.gather_mm``); the app
 (``python -m topfusion_tpu_torch.apps.run_fusion``) with its GIF outputs
-(``io.gif``).
+(``io.gif``); and the sharded block map over ``torch.distributed``, one
+process per shard (``parallel.ShardedBlockPipeline``, with
+``ShardedHostCache`` for its out-of-core swap).
 """
 
 from .config import (
@@ -31,6 +33,12 @@ from .config import (
 from .models.block_pipeline import BlockPipeline
 from .models.pipeline import DensePipeline
 from .models.slam import SlamSystem
+from .parallel import (
+    ShardedBlockPipeline,
+    ShardedHostCache,
+    dryrun_sharded_block_step,
+    make_mesh,
+)
 
 __version__ = "0.1.0"
 
@@ -46,4 +54,8 @@ __all__ = [
     "DensePipeline",
     "BlockPipeline",
     "SlamSystem",
+    "ShardedBlockPipeline",
+    "ShardedHostCache",
+    "make_mesh",
+    "dryrun_sharded_block_step",
 ]

@@ -430,6 +430,22 @@ class PipelineConfig:
             )
 
 
+def resolve_pallas_integrate(bm: BlockMapConfig, device) -> bool:
+    """Whether integration on ``device`` (a ``torch.device`` or its name)
+    goes through the CUDA kernel's wrapper
+    (``ops/cuda/integrate.integrate_blocks_cuda``) rather than the plain
+    ``ops/tsdf_block.integrate_blocks``.  ``use_pallas_integrate`` None
+    (auto) means the kernel on a CUDA device and the plain version on the
+    CPU, as the JAX package picks Pallas on an accelerator and XLA on the
+    CPU.  Any other value but False means the wrapper, which runs the
+    plain version on CPU tensors; a typo that the tri-state config parser
+    leaves a string (``use_pallas_integrate=flase``) picks the kernel too,
+    as the JAX package's ``bool()`` does."""
+    if bm.use_pallas_integrate is None:
+        return getattr(device, "type", str(device).split(":")[0]) == "cuda"
+    return bm.use_pallas_integrate is not False
+
+
 def default_config() -> PipelineConfig:
     return PipelineConfig()
 

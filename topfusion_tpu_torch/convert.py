@@ -101,6 +101,53 @@ def block_state_to_numpy(state: BlockState) -> Dict[str, Any]:
     return _state_to_numpy(state)
 
 
+# Fields of a sharded state whose dim 0 stacks the shards' local arrays;
+# the others are replicated.  ``color`` is stacked only with a color pool.
+_SHARDED_FIELDS = ("bucket_keys", "bucket_slots", "block_coords", "tsdf", "weight",
+                   "num_blocks", "vis_slots", "color")
+
+
+def _stacked(name: str, arrays: Mapping[str, Any]) -> bool:
+    if name == "color":
+        return np.shape(arrays["color"])[0] == np.shape(arrays["tsdf"])[0]
+    return name in _SHARDED_FIELDS
+
+
+def sharded_block_state_from_numpy(
+    arrays: Mapping[str, Any], rank: int, ns: int, device="cuda"
+) -> BlockState:
+    """Shard ``rank``'s local ``BlockState`` of a ``ns``-shard map on
+    ``device`` (the card by default, a ``RuntimeError`` where there is
+    none), from the global arrays of a JAX ``ShardedBlockPipeline``
+    state (``state._asdict()``): dim 0 of every map array, of
+    ``num_blocks`` and of ``vis_slots`` stacks the ``ns`` shards' local
+    arrays; pose, model maps and counters are replicated."""
+    local = {}
+    for name in BlockState._fields:
+        v = arrays[name]
+        if _stacked(name, arrays):
+            a = np.asarray(v)
+            n = a.shape[0] // ns
+            v = a[rank * n : (rank + 1) * n]
+            if name == "num_blocks":
+                v = v.reshape(())
+        local[name] = v
+    return block_state_from_numpy(local, device)
+
+
+def sharded_block_state_to_numpy(states) -> Dict[str, Any]:
+    """The global layout of a sharded state (as a JAX
+    ``ShardedBlockPipeline`` state holds it) from every shard's local
+    state in rank order: port ``BlockState``s, or their
+    ``block_state_to_numpy`` dicts.  Replicated fields come from rank 0."""
+    parts = [s if isinstance(s, Mapping) else block_state_to_numpy(s) for s in states]
+    out = dict(parts[0])
+    for name in BlockState._fields:
+        if _stacked(name, parts[0]):
+            out[name] = np.concatenate([np.atleast_1d(p[name]) for p in parts])
+    return out
+
+
 def dense_state_from_numpy(arrays: Mapping[str, Any], device="cuda") -> DenseState:
     """A port ``DenseState`` on ``device`` (the card by default, a
     ``RuntimeError`` where there is none) from a mapping of every

@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from ..config import PipelineConfig
+from ..config import PipelineConfig, resolve_pallas_integrate
 from ..ops.blockmap import (
     BlockMap,
     make_block_map,
@@ -90,6 +90,15 @@ class BlockStepAux(NamedTuple):
     integrate_skipped: torch.Tensor
     # Frustum-visible allocated blocks truncated by max_visible_blocks.
     visible_overflow: torch.Tensor
+
+
+def shade(points: torch.Tensor, normals: torch.Tensor, T_wc: torch.Tensor) -> torch.Tensor:
+    """Phong-shaded uint8 [H, W, 3] image of world-space points and
+    normals seen from ``T_wc``, lit from above and behind the camera."""
+    eye = T_wc[:3, 3]
+    # eye + (0, -1, -1), the offset built on the device.
+    light = eye - torch.arange(3, device=T_wc.device).clamp(max=1).to(torch.float32)
+    return phong_shade(points, normals, light, eye)
 
 
 class BlockPipeline:
@@ -242,19 +251,13 @@ class BlockPipeline:
 
     def integrate(self, m: BlockMap, T_wc: torch.Tensor, depth: torch.Tensor, vis):
         """Fuse ``depth`` (float32 metres) at ``T_wc`` into the visible
-        blocks: the integrate kernel, or its plain version where
-        ``use_pallas_integrate`` is False.  Returns (map, num_visible)."""
+        blocks: the integrate kernel, or its plain version, as
+        ``config.resolve_pallas_integrate`` chooses.  Returns (map,
+        num_visible)."""
         cfg = self.cfg
-        fn = integrate_blocks if cfg.blockmap.use_pallas_integrate is False else integrate_blocks_cuda
+        use_kernel = resolve_pallas_integrate(cfg.blockmap, self.device)
+        fn = integrate_blocks_cuda if use_kernel else integrate_blocks
         return fn(m, cfg.camera, cfg.tsdf, cfg.blockmap, T_wc, depth, vis)
-
-    def shade(self, points: torch.Tensor, normals: torch.Tensor, T_wc: torch.Tensor) -> torch.Tensor:
-        """Phong-shaded uint8 [H, W, 3] image of world-space points and
-        normals seen from ``T_wc``, lit from above and behind the camera."""
-        eye = T_wc[:3, 3]
-        # eye + (0, -1, -1), the offset built on the device.
-        light = eye - torch.arange(3, device=self.device).clamp(max=1).to(torch.float32)
-        return phong_shade(points, normals, light, eye)
 
     # ------------------------------------------------------------------
     def _free_view_raycast(self, state: BlockState, T_wc: torch.Tensor) -> RaycastResult:
@@ -282,7 +285,7 @@ class BlockPipeline:
         else:
             T = torch.as_tensor(T_wc, dtype=torch.float32).to(self.device)
         rc = self._free_view_raycast(state, T)
-        return self.shade(rc.points, rc.normals, T)
+        return shade(rc.points, rc.normals, T)
 
     def render_normals(self, state: BlockState) -> torch.Tensor:
         """Normal-map view from the tracked pose, uint8 [H, W, 3]."""

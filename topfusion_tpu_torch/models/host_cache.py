@@ -1,7 +1,6 @@
 """Host block cache: the out-of-core block pool's host side (port of
-``HostBlockCache`` and ``host_visible_mask`` of
-``topfusion_tpu/models/host_cache.py``; the per-shard ``ShardedHostCache``
-belongs to the multi-device layer and is not ported).
+``HostBlockCache``, ``ShardedHostCache`` and ``host_visible_mask`` of
+``topfusion_tpu/models/host_cache.py``).
 
 A plain coord-keyed store plus a least-recently-seen policy over device
 slots; the heavy lifting is the three batched device operations of
@@ -20,6 +19,13 @@ payload are host syncs, none of them inside a step.
 
 With a ``HostBlockCache`` attached, the scene a map can hold is bounded
 by host memory, not by the pool's capacity.
+
+``ShardedHostCache`` is the same policy for one shard of a
+``parallel.block_sharded.ShardedBlockPipeline``: each shard's process
+keeps its own store and decides for its own blocks.  Ownership is static
+by hash, so a block evicted from a shard restores into the same shard,
+and since evict and restore hold no collective, shards may swap
+different amounts at different steps.
 
 Payloads stay in the POOL dtype as CPU tensors (numpy has no bfloat16),
 so evict -> restore is bit-exact for float32, int16 and bfloat16 pools.
@@ -106,6 +112,47 @@ class HostBlockCache:
         return len(self.store)
 
     # ------------------------------------------------------------- after
+    def _note_visible(self, vis_slots) -> None:
+        """Count a step and mark its visible slots (a tensor or an array,
+        -1 = empty) as seen now."""
+        self._frame += 1
+        if isinstance(vis_slots, torch.Tensor):
+            vis_slots = vis_slots.cpu().numpy()
+        vs = np.asarray(vis_slots)
+        self.last_seen[vs[vs >= 0]] = self._frame
+
+    def _cold_slots(self, n_live: int) -> Optional[np.ndarray]:
+        """The coldest live slots to evict while the free slots are fewer
+        than the headroom, padded with -1 to ``evict_batch``; None when
+        nothing needs evicting."""
+        free = self.bm_cfg.capacity - n_live
+        n_target = min(self.evict_batch, self.headroom - free, n_live)
+        if n_target <= 0:
+            return None
+        order = np.argsort(self.last_seen[:n_live], kind="stable")
+        slots = np.full((self.evict_batch,), -1, np.int32)
+        slots[:n_target] = order[:n_target]
+        return slots
+
+    def _keep_evicted(self, ex: ExtractedBlocks, remap: torch.Tensor) -> np.ndarray:
+        """Fetch an evicted payload into the host store and carry the
+        recency over to the compacted slots; returns the remap as numpy."""
+        coords = ex.coords.cpu().numpy()
+        tsdf = ex.tsdf.cpu()
+        weight = ex.weight.cpu()
+        has_color = ex.color.shape[1] == tsdf.shape[1]
+        color = ex.color.cpu() if has_color else None
+        for i in np.nonzero(ex.valid.cpu().numpy())[0]:
+            self.store[tuple(int(c) for c in coords[i])] = (
+                tsdf[i], weight[i], color[i] if has_color else None,
+            )
+        remap_np = remap.cpu().numpy()
+        new_seen = np.zeros_like(self.last_seen)
+        kept = remap_np >= 0
+        new_seen[remap_np[kept]] = self.last_seen[kept]
+        self.last_seen = new_seen
+        return remap_np
+
     def after_step(
         self, m: BlockMap, vis_slots
     ) -> Tuple[BlockMap, Optional[torch.Tensor]]:
@@ -116,44 +163,14 @@ class HostBlockCache:
         ([capacity] int32 on the device, -1 = evicted) that the caller
         must apply to any slot-indexed side state (the aged visible
         list)."""
-        self._frame += 1
-        if isinstance(vis_slots, torch.Tensor):
-            vis_slots = vis_slots.cpu().numpy()
-        vs = np.asarray(vis_slots)
-        self.last_seen[vs[vs >= 0]] = self._frame
-
+        self._note_visible(vis_slots)
         total_remap = None
         # Evict in batches until the free headroom is restored.
-        while True:
-            n_live = int(m.num_blocks)
-            free = self.bm_cfg.capacity - n_live
-            n_target = min(self.evict_batch, self.headroom - free, n_live)
-            if n_target <= 0:
-                break
-            order = np.argsort(self.last_seen[:n_live], kind="stable")
-            slots = np.full((self.evict_batch,), -1, np.int32)
-            slots[:n_target] = order[:n_target]
+        while (slots := self._cold_slots(int(m.num_blocks))) is not None:
             slots_dev = torch.from_numpy(slots).to(self.device)
-
             ex = extract_blocks(m, slots_dev)
             m, remap = evict_blocks(m, slots_dev, self.bm_cfg)
-            # Host fetch of the evicted payload (bounded rows per batch).
-            coords = ex.coords.cpu().numpy()
-            tsdf = ex.tsdf.cpu()
-            weight = ex.weight.cpu()
-            has_color = ex.color.shape[1] == tsdf.shape[1]
-            color = ex.color.cpu() if has_color else None
-            for i in np.nonzero(ex.valid.cpu().numpy())[0]:
-                self.store[tuple(int(c) for c in coords[i])] = (
-                    tsdf[i], weight[i], color[i] if has_color else None,
-                )
-
-            # Carry the host's recency over to the compacted slots.
-            remap_np = remap.cpu().numpy()
-            new_seen = np.zeros_like(self.last_seen)
-            kept = remap_np >= 0
-            new_seen[remap_np[kept]] = self.last_seen[kept]
-            self.last_seen = new_seen
+            remap_np = self._keep_evicted(ex, remap)
             if total_remap is None:
                 total_remap = remap_np
             else:
@@ -167,12 +184,12 @@ class HostBlockCache:
         return m, torch.from_numpy(total_remap).to(self.device)
 
     # ------------------------------------------------------------ before
-    def before_step(self, m: BlockMap, T_wc) -> BlockMap:
-        """Restore host-cached blocks visible from ``T_wc`` (a 4x4 tensor
-        or array: the last known pose, a one-step prediction lag), at
-        most ``restore_batch`` of them."""
+    def _restore_batch(self, T_wc):
+        """(blocks, their coords [n, 3]) of up to ``restore_batch`` stored
+        blocks visible from ``T_wc`` (a 4x4 tensor or array), padded to
+        ``restore_batch`` on the device; None when there are none."""
         if not self.store:
-            return m
+            return None
         if isinstance(T_wc, torch.Tensor):
             T_wc = T_wc.cpu().numpy()
         coords = np.asarray(list(self.store.keys()), np.int32)
@@ -181,7 +198,7 @@ class HostBlockCache:
         )
         idx = np.nonzero(vis)[0][: self.restore_batch]
         if len(idx) == 0:
-            return m
+            return None
         k = self.restore_batch
         sel = coords[idx]
         entries = [self.store[tuple(c)] for c in sel]
@@ -204,11 +221,25 @@ class HostBlockCache:
             color=pad(color),
             valid=(torch.arange(k) < len(idx)).to(self.device),
         )
-        m, ok = insert_blocks(m, blocks, self.bm_cfg, self.tsdf_cfg.max_weight)
+        return blocks, sel
+
+    def _drop_restored(self, sel: np.ndarray, ok: torch.Tensor) -> None:
+        """Drop the restored entries (``ok``) of a batch from the store."""
         ok = ok.cpu().numpy()
-        for i in range(len(idx)):
+        for i in range(len(sel)):
             if ok[i]:
                 del self.store[tuple(sel[i])]
+
+    def before_step(self, m: BlockMap, T_wc) -> BlockMap:
+        """Restore host-cached blocks visible from ``T_wc`` (a 4x4 tensor
+        or array: the last known pose, a one-step prediction lag), at
+        most ``restore_batch`` of them."""
+        batch = self._restore_batch(T_wc)
+        if batch is None:
+            return m
+        blocks, sel = batch
+        m, ok = insert_blocks(m, blocks, self.bm_cfg, self.tsdf_cfg.max_weight)
+        self._drop_restored(sel, ok)
         return m
 
     # ------------------------------------------------------------ remap
@@ -252,6 +283,60 @@ class HostBlockCache:
                 w = torch.clamp(w01, max=self.tsdf_cfg.max_weight)
             new_store[key] = (t, w, c)
         self.store = new_store
+
+
+class ShardedHostCache(HostBlockCache):
+    """The host cache of this process's shard of a sharded pipeline
+    ``pipe``: the ``HostBlockCache`` policy over the shard's local slots,
+    through ``pipe.swap_evict`` / ``pipe.swap_insert``, on ``pipe``'s
+    device.  ``n_host_blocks`` counts this shard's store."""
+
+    def __init__(
+        self,
+        pipe,  # parallel.block_sharded.ShardedBlockPipeline
+        evict_batch: int = 1024,
+        restore_batch: Optional[int] = None,
+        headroom: Optional[int] = None,
+    ):
+        lc = pipe.local_cfg
+        super().__init__(
+            lc.blockmap, lc.tsdf, lc.camera, evict_batch=evict_batch,
+            restore_batch=restore_batch, headroom=headroom, device=pipe.device,
+        )
+        self.pipe = pipe
+
+    def after_step(self, state):
+        """Update this shard's recency from its aged visible list and evict
+        its coldest slots while its free slots are fewer than the
+        headroom.  Returns the (possibly compacted) state, its visible
+        list remapped."""
+        self._note_visible(state.vis_slots)
+        while (slots := self._cold_slots(int(state.num_blocks))) is not None:
+            state, ex, remap = self.pipe.swap_evict(
+                state, torch.from_numpy(slots).to(self.device))
+            self._keep_evicted(ex, remap)
+        return state
+
+    def before_step(self, state, T_wc):
+        """Restore this shard's stored blocks visible from ``T_wc``."""
+        batch = self._restore_batch(T_wc)
+        if batch is None:
+            return state
+        blocks, sel = batch
+        state, ok = self.pipe.swap_insert(state, blocks)
+        self._drop_restored(sel, ok)
+        return state
+
+    def remap_store(self, corr: np.ndarray) -> None:
+        """Not ported: a re-keyed block may change its owning shard, so
+        carrying the stores through a map correction needs an exchange
+        between the shards' processes.  Its one caller is
+        ``ShardedSlamSystem``, which is not ported yet."""
+        raise NotImplementedError(
+            "ShardedHostCache.remap_store moves blocks between the shards' "
+            "processes; it comes with ShardedSlamSystem, its only caller, which "
+            "is not ported yet"
+        )
 
 
 def host_visible_mask(

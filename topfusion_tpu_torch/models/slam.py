@@ -45,7 +45,7 @@ from ..ops.splat import splat_model_maps
 from ..ops.tsdf_block import allocate_from_depth, visible_blocks
 from ..utils.device_info import entry_device
 from ..utils.numerics import norm3
-from .block_pipeline import BlockPipeline, BlockState
+from .block_pipeline import BlockPipeline, BlockState, shade
 from .posegraph import (
     LoopInfo,
     PoseGraph,
@@ -208,7 +208,7 @@ class SlamSystem:
 
         img = None
         if self.render_in_chunk:
-            img = self.pipe.shade(state.model_points[0], state.model_normals[0], state.T_wc)
+            img = shade(state.model_points[0], state.model_normals[0], state.T_wc)
         return (state, graph, kf_buf, kf_odom_buf, ring, poses, auxes,
                 found, added, img, loop_info)
 

@@ -1,5 +1,4 @@
-"""Block-sparse voxel map (port of ``topfusion_tpu/ops/blockmap.py``,
-without the ``shard`` arguments of the multi-device layer).
+"""Block-sparse voxel map (port of ``topfusion_tpu/ops/blockmap.py``).
 
 Three dense arrays, as in the JAX package:
 
@@ -13,6 +12,13 @@ Three dense arrays, as in the JAX package:
     32767 for int16), else a ``[1, 1, 1, 1, 3]`` dummy;
   * deterministic allocation: sort -> unique -> probe -> prefix-sum rank
     -> scatter, so slots line up with the JAX package's slot for slot.
+
+A sharded map (``parallel/block_sharded.py``) hashes into a global bucket
+space of ``nb_local * num_shards`` buckets: the low hash bits name the
+owning shard, the high bits the bucket in its local table
+(:func:`_bucket_owner`).  The ``shard = (shard_id, num_shards)``
+arguments below take Python ints; a shard's lookups report blocks owned
+by other shards as not found, so remote space reads as free.
 
 PyTorch has no ``mode="drop"`` scatter: out-of-range indices raise on
 the CPU and assert on the card.  Every dropped write here goes to one
@@ -132,6 +138,22 @@ def spatial_hash(coords: torch.Tensor, num_buckets: int) -> torch.Tensor:
     return (h & (num_buckets - 1)).to(torch.int32)
 
 
+def _bucket_owner(coords: torch.Tensor, nb_local: int, shard):
+    """(local bucket, ownership mask or None) of block coords (..., 3).
+
+    Unsharded maps (``shard`` None) hash into their own table.  Sharded
+    maps hash into the global bucket space of ``nb_local * num_shards``
+    buckets; ``shard = (shard_id, num_shards)`` owns the global buckets
+    whose residue mod ``num_shards`` is ``shard_id``, and keeps them at
+    local bucket ``global // num_shards``.
+    """
+    if shard is None:
+        return spatial_hash(coords, nb_local), None
+    shard_id, num_shards = shard
+    gb = spatial_hash(coords, nb_local * num_shards)
+    return torch.div(gb, num_shards, rounding_mode="floor"), gb % num_shards == shard_id
+
+
 # ----------------------------------------------------------------- ctor
 def make_block_map(
     cfg: BlockMapConfig, ways: int = 4, dtype=None, use_color: bool = False,
@@ -205,15 +227,19 @@ def voxel_centers(
 
 # ----------------------------------------------------------------- lookup
 def lookup(
-    m: BlockMap, coords: torch.Tensor, bits: int
+    m: BlockMap, coords: torch.Tensor, bits: int, shard=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Batched block lookup: coords (..., 3) -> (slot (...,), found (...,))."""
+    """Batched block lookup: coords (..., 3) -> (slot (...,), found (...,)).
+    With ``shard``, blocks that other shards own report not found."""
     key = pack_key(coords, bits)
-    b = spatial_hash(coords, m.bucket_keys.shape[0]).long()
+    b, mine = _bucket_owner(coords, m.bucket_keys.shape[0], shard)
+    b = b.long()
     ways_keys = m.bucket_keys[b]            # (..., W)
     ways_slots = m.bucket_slots[b]          # (..., W)
     match = ways_keys == key[..., None]
     found = torch.any(match, dim=-1) & in_coord_range(coords, bits)
+    if mine is not None:
+        found = found & mine
     slot = torch.sum(torch.where(match, ways_slots, 0), dim=-1, dtype=torch.int32)
     return torch.where(found, slot, -1), found
 
@@ -245,6 +271,7 @@ def allocate(
     cand_coords: torch.Tensor,
     cand_valid: torch.Tensor,
     cfg: BlockMapConfig,
+    shard=None,
     return_touched: bool = False,
 ):
     """Deterministically insert new blocks for candidate coords [N, 3].
@@ -253,6 +280,11 @@ def allocate(
     ``cfg.max_new_blocks_per_frame`` and pool capacity.  Returns the new
     map (new hash tables; the pool tensors are shared with ``m``) and the
     number inserted, or ``(map, AllocInfo)`` with ``return_touched``.
+
+    With ``shard = (shard_id, num_shards)`` only the candidates this
+    shard owns are inserted: every shard runs the same allocation over
+    the same candidates, and ownership routes each block to exactly one
+    shard with no communication.
     """
     bits = cfg.coord_bits
     n_max = cfg.max_new_blocks_per_frame
@@ -261,6 +293,8 @@ def allocate(
     dev = cand_coords.device
 
     cand_valid = cand_valid & in_coord_range(cand_coords, bits)
+    if shard is not None:
+        cand_valid = cand_valid & _bucket_owner(cand_coords, nb, shard)[1]
     keys = torch.where(cand_valid, pack_key(cand_coords, bits), EMPTY_KEY)
 
     # Sort: duplicates adjacent, invalids at the end.
@@ -271,7 +305,7 @@ def allocate(
 
     # Membership probe against the existing table.
     coords_sorted = unpack_key(keys_sorted, bits)
-    slot_sorted, exists = lookup(m, coords_sorted, bits)
+    slot_sorted, exists = lookup(m, coords_sorted, bits, shard=shard)
     is_new = uniq & ~exists
 
     # Rank new keys; cap by per-frame bound and remaining capacity.
@@ -290,7 +324,7 @@ def allocate(
     # Way assignment: occupancy of each bucket + rank of this key among
     # earlier batch keys sharing the bucket (an [n_max, n_max] compare,
     # as in the JAX package).
-    bucket = torch.where(new_valid, spatial_hash(new_coords, nb), nb)
+    bucket = torch.where(new_valid, _bucket_owner(new_coords, nb, shard)[0], nb)
     ar = torch.arange(n_max, device=dev)
     prev_same = (bucket[None, :] == bucket[:, None]) & (ar[None, :] < ar[:, None])
     batch_rank = torch.sum(prev_same, dim=1, dtype=torch.int32)
@@ -347,32 +381,33 @@ def allocate(
 
 
 # ----------------------------------------------------------------- voxel reads
-def _split_voxel(m: BlockMap, voxel_coords: torch.Tensor, bits: int):
+def _split_voxel(m: BlockMap, voxel_coords: torch.Tensor, bits: int, shard=None):
     """Global integer voxel coords (..., 3) -> (pool row, local x, y, z,
     found): the row is 0 where the block is missing.  Floor division, so
     negative coordinates land in the block below, not the one toward 0."""
     bsz = m.block_size
     block = torch.div(voxel_coords, bsz, rounding_mode="floor")
     local = (voxel_coords - block * bsz).long()
-    slot, found = lookup(m, block, bits)
+    slot, found = lookup(m, block, bits, shard=shard)
     sl = torch.where(found, slot, 0).long()
     return sl, local[..., 0], local[..., 1], local[..., 2], found
 
 
 def read_voxels_nearest(
-    m: BlockMap, voxel_coords: torch.Tensor, bits: int
+    m: BlockMap, voxel_coords: torch.Tensor, bits: int, shard=None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Global integer voxel coords (..., 3) -> (tsdf, weight, block_found),
-    semantic float32 whatever the pool dtype.  Unallocated space reads as
-    free (tsdf = 1, w = 0)."""
-    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits)
+    semantic float32 whatever the pool dtype.  Unallocated space, and on a
+    sharded map space that other shards own, reads as free (tsdf = 1,
+    w = 0)."""
+    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits, shard)
     t = decode_tsdf(m.tsdf[sl, lx, ly, lz])
     w = decode_weight(m.weight[sl, lx, ly, lz])
     return torch.where(found, t, 1.0), torch.where(found, w, 0.0), found
 
 
 def read_color_nearest(
-    m: BlockMap, voxel_coords: torch.Tensor, bits: int
+    m: BlockMap, voxel_coords: torch.Tensor, bits: int, shard=None
 ) -> torch.Tensor:
     """Global integer voxel coords (..., 3) -> RGB in [0, 1]; unallocated
     space, and a map built without ``use_color``, read black."""
@@ -381,13 +416,13 @@ def read_color_nearest(
             voxel_coords.shape[:-1] + (3,), dtype=torch.float32,
             device=voxel_coords.device,
         )
-    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits)
+    sl, lx, ly, lz, found = _split_voxel(m, voxel_coords, bits, shard)
     c = decode_tsdf(m.color[sl, lx, ly, lz])
     return torch.where(found[..., None], c, 0.0)
 
 
 def sample_trilinear(
-    m: BlockMap, pv: torch.Tensor, bits: int
+    m: BlockMap, pv: torch.Tensor, bits: int, shard=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Trilinear (tsdf, min-weight) at fractional global voxel coords,
     crossing block borders through a lookup per corner.  The eight terms
@@ -405,7 +440,7 @@ def sample_trilinear(
                 corner = torch.stack(
                     [base[..., 0] + cx, base[..., 1] + cy, base[..., 2] + cz], dim=-1
                 )
-                t, w, _ = read_voxels_nearest(m, corner, bits)
+                t, w, _ = read_voxels_nearest(m, corner, bits, shard=shard)
                 wgt = (
                     (fx if cx else 1.0 - fx)
                     * (fy if cy else 1.0 - fy)

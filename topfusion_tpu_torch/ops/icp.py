@@ -230,11 +230,18 @@ def icp_track(
     curr_normals_pyr: List[torch.Tensor],
     model_points_pyr: List[torch.Tensor],
     model_normals_pyr: List[torch.Tensor],
+    axis=None,
 ) -> ICPResult:
     """Coarse-to-fine frame-to-model tracking: levels coarsest first with
     ``cfg.iters[level]`` iterations each; the last
     ``bilinear_polish_iters`` of the finest level associate bilinearly
-    on rows subsampled by a further ``polish_stride``."""
+    on rows subsampled by a further ``polish_stride``.
+
+    With ``axis`` (a ``parallel.collectives.MapAxis``) each member passes
+    its own rows of the current maps, and the 7x7 Gram matrix and the
+    correspondence count are summed over the axis in every iteration,
+    before the solve, so that every member takes the same step.
+    """
     dev = T_init.device
     T_est = T_init
     ok_all = torch.ones((), dtype=torch.bool, device=dev)
@@ -262,6 +269,8 @@ def icp_track(
                 bilinear=bilinear_l, gather_mode=cfg.gather_mode,
                 onehot_v_margin=cfg.onehot_v_margin,
             )
+            if axis is not None:
+                G, count = axis.psum_gram(G, count)
             xi, step_ok = _solve_increment(
                 G, count, cfg, min_corresp=max(8, cfg.min_corresp // 4 ** level)
             )

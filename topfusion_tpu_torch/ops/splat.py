@@ -12,9 +12,15 @@ of ``topfusion_tpu/ops/splat.py``).
   5. winner attributes are gathered back; normals come from image-space
      differences of the point map.
 
+On a sharded map (``parallel/block_sharded.py``) every shard splats its
+own blocks into a local z-buffer and the winners are composited across
+the shards sort-last: one ``pmin`` of the packed keys (surfel ids
+interleave the shard id, so keys never tie across shards), then one
+``psum`` of the winners' attributes, each pixel's taken from its owner
+and zero elsewhere.
+
 Not ported: the JAX package's 8-channel row padding and its
-``optimization_barrier`` fences (TPU layout choices), the sharded
-compositing branch (waits for ``parallel/``) and the pre-gathered
+``optimization_barrier`` fences (TPU layout choices) and the pre-gathered
 ``blocks=`` hand-off (the pool is gathered here).
 """
 
@@ -68,12 +74,16 @@ def splat_model_maps(
     vis: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     surfels_per_block: int = 128,
     dilate_passes: int = 1,
+    axis=None,
 ) -> RaycastResult:
     """Render point/normal maps from the visible blocks by splatting.
 
     ``vis`` is the (slots, coords, mask) triple shared with integration;
     ``surfels_per_block`` caps surface voxels taken per block;
     ``dilate_passes`` 3x3 min-dilations close sub-pixel splat holes.
+    With ``axis`` (a ``parallel.collectives.MapAxis``) the local splats
+    are composited across the axis's shards, and every member returns
+    the same maps.
     """
     slots, coords, mask = vis
     bsz = bm_cfg.block_size
@@ -82,9 +92,10 @@ def splat_model_maps(
     h, w = cam.height, cam.width
     dev = T_wc.device
     V = slots.shape[0]
+    num_shards = 1 if axis is None else axis.size
     nvox = bsz * bsz * bsz
     K = min(surfels_per_block, nvox)
-    id_bits = max(1, (V * K - 1).bit_length())
+    id_bits = max(1, (V * K * num_shards - 1).bit_length())
     depth_bits = min(_MAX_DEPTH_BITS, 31 - id_bits)
     if depth_bits < _MIN_DEPTH_BITS:
         raise ValueError(
@@ -147,13 +158,19 @@ def splat_model_maps(
     qmax = (1 << depth_bits) - 1
     zq = torch.clamp(true_div(z - zmin, zmax - zmin) * qmax, 0, qmax).to(torch.int32)
     ids = torch.arange(V * K, dtype=torch.int32, device=dev).reshape(V, K)
+    if axis is not None:
+        # Globally unique surfel ids: the owner is id % num_shards.
+        ids = ids * num_shards + axis.rank
     key = (zq << id_bits) | ids
 
     # Off-image surfels go to one trailing pixel, sliced off after.
     pix = torch.where(ok, v * w + u, h * w).reshape(-1).long()
     zbuf = torch.full((h * w + 1,), _SENTINEL, dtype=torch.int32, device=dev)
     zbuf.scatter_reduce_(0, pix, torch.where(ok, key, _SENTINEL).reshape(-1), "amin")
-    zimg = zbuf[: h * w].reshape(h, w)
+    zbuf = zbuf[: h * w]
+    if axis is not None:
+        zbuf = axis.pmin(zbuf)  # the nearest surfel of all shards
+    zimg = zbuf.reshape(h, w)
     for _ in range(dilate_passes):
         zimg = _min_dilate(zimg, _SENTINEL)
     zbuf = zimg.reshape(-1)
@@ -163,7 +180,12 @@ def splat_model_maps(
     surfel_attr = torch.cat(
         [pts.reshape(-1, 3), z.reshape(-1, 1), w_sel.reshape(-1, 1)], dim=-1
     )
-    won = surfel_attr[gid]
+    if axis is not None:
+        mine = hit & (gid % num_shards == axis.rank)
+        won = surfel_attr[torch.where(mine, torch.div(gid, num_shards, rounding_mode="floor"), 0)]
+        won = axis.psum(torch.where(mine[:, None], won, 0.0))
+    else:
+        won = surfel_attr[gid]
     points = torch.where(hit[:, None], won[:, :3], 0.0).reshape(h, w, 3)
     depth = torch.where(hit, won[:, 3], 0.0).reshape(h, w)
     conf = torch.where(hit, won[:, 4], 0.0).reshape(h, w)

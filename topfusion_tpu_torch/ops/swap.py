@@ -1,6 +1,5 @@
 """Out-of-core voxel block pool: the device-side evict / restore
-primitives (port of ``topfusion_tpu/ops/swap.py``, without the ``shard``
-argument of the multi-device layer).
+primitives (port of ``topfusion_tpu/ops/swap.py``).
 
 The policy lives on the host (``models/host_cache.py``); the device side
 is three batched operations on the block map, none of which reads a
@@ -15,6 +14,10 @@ value back to the host:
   * :func:`insert_blocks` — re-insert restored blocks (allocate, look up,
     merge by fusion weight), correct even when the area was re-observed
     and re-allocated while swapped out.
+
+On a sharded map each shard evicts and restores its own blocks:
+``shard = (shard_id, num_shards)`` keeps the bucket table in the global
+bucket space (``ops/blockmap._bucket_owner``).
 
 Where the JAX package scatters with ``mode="drop"`` to an out-of-range
 index, the scratch buffer here has one extra trailing element that takes
@@ -37,9 +40,9 @@ from .blockmap import (
     decode_weight,
     encode_tsdf,
     encode_weight,
+    _bucket_owner,
     lookup,
     pack_key,
-    spatial_hash,
     tsdf_init_value,
 )
 
@@ -89,7 +92,7 @@ def _scatter_drop(size: int, fill, dtype, idx: torch.Tensor, values) -> torch.Te
 
 
 def evict_blocks(
-    m: BlockMap, slots: torch.Tensor, cfg: BlockMapConfig
+    m: BlockMap, slots: torch.Tensor, cfg: BlockMapConfig, shard=None
 ) -> Tuple[BlockMap, torch.Tensor]:
     """Remove the given slots [K] (pad = -1) and compact the pool.
 
@@ -99,7 +102,9 @@ def evict_blocks(
     that fitted before fits after (the kept keys are a subset per
     bucket).  Returns (new map, old->new slot remap [capacity] int32 with
     -1 for evicted); the remap lets callers fix slot-indexed side state
-    such as the aged visible list.  ``m`` is not written.
+    such as the aged visible list.  ``m`` is not written.  ``shard``
+    rebuilds the table in the sharded map's global bucket space (every
+    block of a shard's map is its own, so only the bucket changes).
     """
     cap = m.capacity
     nb, ways = m.bucket_keys.shape
@@ -136,7 +141,7 @@ def evict_blocks(
 
     # Bucket rebuild: sort compacted keys by bucket, rank within bucket.
     keys = torch.where(live_new, pack_key(coords_new, cfg.coord_bits), EMPTY_KEY)
-    bucket = torch.where(live_new, spatial_hash(coords_new, nb), nb)
+    bucket = torch.where(live_new, _bucket_owner(coords_new, nb, shard)[0], nb)
     b_sorted, order = torch.sort(bucket, stable=True)
     first = torch.ones_like(b_sorted, dtype=torch.bool)
     first[1:] = b_sorted[1:] != b_sorted[:-1]
@@ -168,6 +173,7 @@ def insert_blocks(
     blocks: ExtractedBlocks,
     cfg: BlockMapConfig,
     max_weight: float,
+    shard=None,
 ) -> Tuple[BlockMap, torch.Tensor]:
     """Restore host-cached blocks into the map.
 
@@ -178,11 +184,11 @@ def insert_blocks(
     (map, restored mask [K]); callers drop exactly the restored entries
     from the host store.  Entries that are not restored rewrite the
     sacrificial row with its own content, as in the JAX package.  ``m``
-    is not written.
+    is not written.  ``shard`` restores only the blocks this shard owns.
     """
     cap = m.capacity
-    m, _ = allocate(m, blocks.coords, blocks.valid, cfg)
-    slots, found = lookup(m, blocks.coords, cfg.coord_bits)
+    m, _ = allocate(m, blocks.coords, blocks.valid, cfg, shard=shard)
+    slots, found = lookup(m, blocks.coords, cfg.coord_bits, shard=shard)
     ok = blocks.valid & found
     row = torch.where(ok, slots, cap).long()
 

@@ -1,9 +1,10 @@
-"""Block-sparse TSDF (port of ``topfusion_tpu/ops/tsdf_block.py``,
-without the ``shard`` arguments of the multi-device layer): allocation
-from depth, the visible set (full scan and aged), the plain
+"""Block-sparse TSDF (port of ``topfusion_tpu/ops/tsdf_block.py``):
+allocation from depth (ownership-filtered on a sharded map, with the
+candidate pass split over pixel rows), the visible set (full scan and aged), the plain
 gather/fuse/scatter integration that the CUDA kernel
 (``ops/cuda/integrate.py``) is held against, color fusion, expected-depth
-ranges and the lockstep raycast through the hashed map.
+ranges and the lockstep raycast through the hashed map (shard-local on
+a sharded map).
 
 Constants that the JAX package computes in float32 from Python floats
 (the block radius, the frustum bounds widened by it, the allocation
@@ -51,13 +52,22 @@ def allocate_from_depth(
     bm_cfg: BlockMapConfig,
     T_wc: torch.Tensor,
     depth: torch.Tensor,
+    shard=None,
     return_touched: bool = False,
+    row_shard=None,
 ):
     """Mark-and-insert blocks intersecting the depth+-mu band.
 
     For each (strided) valid pixel, ``alloc_steps`` points along the
     camera ray between ``(1 - mu/|p|)`` and ``(1 + mu/|p|)`` of the
     backprojected point become allocation candidates.
+
+    ``shard = (shard_id, num_shards)`` inserts only the candidates this
+    shard owns.  ``row_shard`` (a ``parallel.collectives.MapAxis``)
+    splits the candidate pass: each member takes its strip of
+    ``h // size`` strided rows (rows past ``size * (h // size)`` are
+    dropped, as in the JAX package) and the strips' fixed-size candidate
+    lists are gathered, so that every member inserts from the whole set.
     """
     stride = bm_cfg.alloc_pixel_stride
     k = bm_cfg.alloc_steps
@@ -68,6 +78,10 @@ def allocate_from_depth(
     hs, ws = h0 // stride, w0 // stride
     d = depth[: hs * stride : stride, : ws * stride : stride]
     uv = pixel_grid(cam, device=depth.device)[::stride, ::stride]
+    if row_shard is not None:
+        hl = d.shape[0] // row_shard.size
+        d = d[row_shard.rank * hl : (row_shard.rank + 1) * hl]
+        uv = uv[row_shard.rank * hl : (row_shard.rank + 1) * hl]
     valid = (d > 0.0) & (d >= tsdf_cfg.view_frustum_min) & (d <= tsdf_cfg.view_frustum_max)
 
     x = true_div(uv[..., 0] - cam.cx, cam.fx)
@@ -87,7 +101,12 @@ def allocate_from_depth(
 
     cand = coords.reshape(-1, 3)
     cand_valid = valid[..., None].expand(lam.shape).reshape(-1)
-    return allocate(m, cand, cand_valid, bm_cfg, return_touched=return_touched)
+    if row_shard is not None:
+        cand = row_shard.all_gather_tiled(cand)
+        cand_valid = row_shard.all_gather_tiled(cand_valid)
+    return allocate(
+        m, cand, cand_valid, bm_cfg, shard=shard, return_touched=return_touched
+    )
 
 
 # ----------------------------------------------------------------- visibility
@@ -445,6 +464,7 @@ def raycast_blocks(
     expected_depth: torch.Tensor | None = None,
     depth_margin: float = 0.16,
     max_steps: int | None = None,
+    shard=None,
     weight_gate: str = "trilinear",
     range_image: torch.Tensor | None = None,
     range_subsample: int | None = None,
@@ -461,7 +481,10 @@ def raycast_blocks(
     :func:`expected_depth_ranges`: rays start at their cell's zmin and
     die past zmax, so a small ``max_steps`` covers the occupied band.
     ``weight_gate="nearest"`` accepts a hit on the nearest voxel's weight
-    instead of the trilinear stencil's minimum.
+    instead of the trilinear stencil's minimum.  ``shard`` marches this
+    shard's blocks alone (remote space reads as free); a sharded map
+    gates on the nearest voxel, since the trilinear stencil straddles
+    block borders and a remote neighbour would read weight 0.
     """
     h, w = cam.height, cam.width
     mu = tsdf_cfg.trunc_dist
@@ -519,7 +542,7 @@ def raycast_blocks(
     found = torch.zeros((h, w), dtype=torch.bool, device=dev)
     for _ in range(n_steps):
         vox = torch.floor(to_voxel(t)).to(torch.int32)
-        sdf, _wt, blk_found = read_voxels_nearest(m, vox, bits)
+        sdf, _wt, blk_found = read_voxels_nearest(m, vox, bits, shard=shard)
         crossing = alive & blk_found & (prev_sdf > 0.0) & (sdf <= 0.0)
         diff = prev_sdf - sdf
         denom = torch.where(torch.abs(diff) > 1e-12, diff, 1.0)
@@ -538,14 +561,14 @@ def raycast_blocks(
         prev_t, t = t, t_next
 
     for _ in range(ray_cfg.refine_steps):
-        sdf_tri, _ = sample_trilinear(m, to_voxel(t_hit), bits)
+        sdf_tri, _ = sample_trilinear(m, to_voxel(t_hit), bits, shard=shard)
         t_hit = t_hit + sdf_tri * mu / dir_norm
 
     if weight_gate == "nearest":
         vox_hit = torch.floor(to_voxel(t_hit)).to(torch.int32)
-        _, w_hit, _ = read_voxels_nearest(m, vox_hit, bits)
+        _, w_hit, _ = read_voxels_nearest(m, vox_hit, bits, shard=shard)
     else:
-        _, w_hit = sample_trilinear(m, to_voxel(t_hit), bits)
+        _, w_hit = sample_trilinear(m, to_voxel(t_hit), bits, shard=shard)
     hit = found & (w_hit > 0.0) & (t_hit > 0.0)
 
     p_w = o_w + t_hit[..., None] * dirs_w

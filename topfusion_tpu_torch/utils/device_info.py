@@ -59,6 +59,22 @@ def device_banner(verbose: bool = False) -> str:
     return "\n".join(lines)
 
 
+def mesh_banner(axis) -> str:
+    """The map axis (``parallel.collectives.MapAxis``): its size and
+    backend, each rank's device, and the cards' names and power limits.  Every member of the axis calls it (it gathers the
+    ranks' devices)."""
+    import torch.distributed as dist
+
+    devices = [None] * axis.size
+    dist.all_gather_object(devices, str(axis.device), group=axis.group)
+    ranks = ", ".join(f"{r} -> {d}" for r, d in enumerate(devices))
+    lines = [f"map axis: {axis.size} shard(s) over {axis.backend}; "
+             f"rank -> device: {ranks}"]
+    if any(d.startswith("cuda") for d in devices):
+        lines.append(nvidia_smi_name_power())
+    return "\n".join(lines)
+
+
 def print_device_info(verbose: bool = False) -> None:
     """Print ``device_banner()``; ``verbose`` adds each card's compute
     capability, memory and multiprocessor count."""
