@@ -122,10 +122,43 @@ Phases, each of which must pass (else the exit code is 1):
      the world of 1 device operations and device time per frame (a
      profiled pass; not in the world of 4, whose four processes
      time-slice the card).
+ 16. the sharded SLAM system (``parallel/sharded_slam.ShardedSlamSystem``)
+     and the rest of ``parallel/``, at the app's VGA operating point:
+     (a) a world of one NCCL process over phase 12 (a)'s frames in its
+     chunks: trajectory, optimized trajectory, graph, map and counters
+     bit-identical to phase 12 (a)'s ``SlamSystem``, one column-kernel
+     launch per frame and per re-fused frame, at most n + 3 host syncs
+     per chunk of n frames without a closure, every solve
+     gn_iters x (cg_iters + 3) collectives of the bytes computed, the
+     kernel bit-equal to plain on the shard's pool; ms, collectives and
+     bytes per chunk, the solve's ms;
+     (c) in the same world, the composed checkpoint saved after the
+     second chunk and restored into a fresh system, which runs the last
+     chunk (the one that closes the loop) bit-identically to (a); ``run_block_pipeline_demo`` with a
+     checkpoint every 2 frames, timed;
+     (d) ``make_sharded_pipeline`` at phase 10's full march over the
+     orbit: in the world of 1 bit-identical to phase 10's
+     ``DensePipeline`` run, in the world of 4 of (b) ATE < 12 mm and the
+     ranks' model maps identical; ms/frame, gathers and bytes per frame;
+     (e) ``measure_scaling_block`` and ``measure_scaling`` on worlds of 1
+     and 4 on this card, printed as overhead and contention, not
+     scaling (no efficiency: the processes share one card);
+     (b) a world of 4 gloo processes sharing the card over a wider
+     out-and-back (60 frames, chunks of 10, every correction rebuilding
+     the map from a 10-frame ring) with a ``ShardedHostCache`` per shard
+     that keeps half of each shard's pool free, so that fewer blocks stay
+     live than the run maps: every frame tracked on every rank, a loop
+     closed and the map rebuilt, ``remap_store`` run while blocks sit on
+     the hosts (its counts printed), optimized ATE < 12 mm, no block
+     dropped, the ranks' trajectories, graphs and renders identical, no
+     key on two ranks, one launch per frame and per re-fused frame on
+     every rank, the kernel bit-equal to plain on every local pool after
+     the rebuild.
 
 The kernel's launch count is set to 0 before each of the stepping paths
 (4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13, 14 and, in each
-shard's process, 15 (a), (b) and the capped sweep of (c)) and read after it;
+shard's process, 15 (a), (b) and the capped sweep of (c), 16 (a) and (b))
+and read after it;
 the dense path launches no hand-written kernel (its integrate is XLA in
 the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
@@ -140,6 +173,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -923,8 +957,9 @@ def timed_passes(pipe, state, frames, passes, rgbs=None):
     return ms, ops / len(frames), device_ms / len(frames), peak
 
 
-def dense_phase(frames, rgbs, poses, device) -> None:
-    """Phase 10."""
+def dense_phase(frames, rgbs, poses, device) -> dict:
+    """Phase 10.  Returns the full march's trajectory and state digest
+    for phase 16 (d)."""
     import numpy as np
     import torch
 
@@ -962,6 +997,7 @@ def dense_phase(frames, rgbs, poses, device) -> None:
         results[name] = (cfg, pipe, state, est)
 
     cfg, pipe, state, est = results["full march"]
+    full = dict(poses=[T.cpu().numpy() for T in est], digest=state_digest(state))
     _, cpipe, cstate, cest = results["step_rgb"]
     same = all(torch.equal(a, b) for a, b in zip(est, cest))
     top = float(cstate.color.max())
@@ -1015,6 +1051,7 @@ def dense_phase(frames, rgbs, poses, device) -> None:
     measure("dense render_color", lambda: cpipe.render_color(cstate), repeats=3)
     measure("extract_pointcloud_dense",
             lambda: extract_pointcloud_dense(state.volume(), cfg.tsdf, cfg.dense), repeats=3)
+    return full
 
 
 def sweep_config(capacity: int):
@@ -1211,16 +1248,16 @@ def slam_config(**posegraph):
         posegraph=dataclasses.replace(cfg.posegraph, **posegraph))
 
 
-def out_and_back(n: int):
-    """tests/test_slam.py's out-and-back: 0.08 rad of yaw and 0.10 m along x
-    at the turn, back to the start."""
+def out_and_back(n: int, yaw: float = 0.08, shift: float = 0.10):
+    """tests/test_slam.py's out-and-back: ``yaw`` rad (0.08) and ``shift`` m
+    along x (0.10) at the turn, back to the start."""
     import math
 
     import torch
 
     from topfusion_tpu_torch.geometry.se3 import se3_exp
 
-    return [se3_exp(torch.tensor([0, 0.08 * s, 0, 0.10 * s, 0.02 * s, 0])).numpy()
+    return [se3_exp(torch.tensor([0, yaw * s, 0, shift * s, 0.02 * s, 0])).numpy()
             for s in (math.sin(math.pi * i / (n - 1)) for i in range(n))]
 
 
@@ -1311,8 +1348,9 @@ def check_slam(name, r, gt) -> tuple:
     return odom, opt
 
 
-def slam_phase(device) -> dict:
-    """Phase 12.  Returns the kernel launches of (a) and (b)."""
+def slam_phase(device) -> tuple:
+    """Phase 12.  Returns the kernel launches of (a) and (b), and (a)'s
+    frames and results for phase 16."""
     import os
 
     import numpy as np
@@ -1347,6 +1385,9 @@ def slam_phase(device) -> dict:
         loop = any(i["loop"] for i in a["infos"][k * SLAM_CHUNK:(k + 1) * SLAM_CHUNK])
         if not loop:  # a closure adds the solve's fetch
             check(syncs <= size + 2, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
+    # What phase 16 (a) holds the sharded system to.
+    slam_a = dict(gt=gt, frames=frames.cpu().numpy(), **slam_digest(a["slam"]),
+                  launches=a["launches"], refused=list(a["refused"]), chunk_ms=a["chunk_ms"])
     del a["slam"]
 
     # (b): every correction rebuilds the map, from the keyframes and a ring.
@@ -1444,7 +1485,18 @@ def slam_phase(device) -> dict:
         check(orbit == [(w, h, 10)] * APP_ORBIT_VIEWS,
               f"slam (c): orbit.gif holds {orbit}, not {APP_ORBIT_VIEWS} full-size images")
         check(summary["orbit_coverage"] > 0, "slam (c): the orbit renders show nothing")
-    return {"slam": a["launches"], "slam_reintegrate": b_launches}
+    return {"slam": a["launches"], "slam_reintegrate": b_launches}, slam_a
+
+
+def slam_digest(slam) -> dict:
+    """What two SLAM runs must share to be the same run: the odometry and
+    optimized trajectories, the graph's and the map's bits, the counters."""
+    import numpy as np
+
+    return dict(odom=np.stack(slam.odom_poses), opt=np.stack(slam.optimized_trajectory()),
+                graph=state_digest(slam.graph), state=state_digest(slam.state),
+                loops=slam.loops_closed, reint=slam.reintegrations,
+                num_kf=int(slam.graph.num_kf), num_edges=int(slam.graph.num_edges))
 
 
 def count_syncs(fn):
@@ -1943,6 +1995,384 @@ def sharded_phase(poses, frames, phase4, sweep) -> dict:
             "step_sharded_sweep_world4": sum(c["launches"] for c in cp)}
 
 
+
+# Phase 16 (b): a world of SHARDS gloo processes sharing the card runs the
+# SLAM system over a wider out-and-back than phase 12's (SHARDED_SLAM_YAW
+# rad and SHARDED_SLAM_SHIFT m at the turn, SHARDED_SLAM_FRAMES frames) in
+# chunks of SHARDED_SLAM_CHUNK, every correction rebuilding the map from a
+# ring of SHARDED_SLAM_CHUNK frames, with a ShardedHostCache per shard that
+# keeps half of each shard's pool free (headroom), so that at most
+# SHARDS x (capacity / 2) blocks stay live: fewer than the run maps.  The
+# pool itself holds the rebuild, which re-fuses the keyframes and the ring
+# with no swap (in both packages) and so must fit the pool.
+SHARDED_SLAM_FRAMES = 60
+SHARDED_SLAM_YAW, SHARDED_SLAM_SHIFT = 0.2, 0.25
+SHARDED_SLAM_CHUNK = 10
+SHARDED_SLAM_CAP = 1 << 13
+SHARDED_SLAM_EVICT, SHARDED_SLAM_RESTORE = 256, 128  # per shard
+SLAM_SAVE_AT = 2  # 16 (c): chunks before the checkpoint; the resumed run has the closure
+SCALING_FRAMES = 2  # frames per pass of measure_scaling(_block) (16 (e))
+
+
+def sharded_slam_config():
+    """Phase 16 (b)'s configuration: the app's VGA operating point
+    (``slam_config``) with a ring of SHARDED_SLAM_CHUNK frames, every
+    correction rebuilding the map, and a pool of SHARDED_SLAM_CAP blocks
+    over the shards with the out-of-core cache on."""
+    cfg = slam_config(min_map_correction=0.0, reint_ring=SHARDED_SLAM_CHUNK)
+    return dataclasses.replace(cfg, blockmap=dataclasses.replace(
+        cfg.blockmap, capacity=SHARDED_SLAM_CAP, out_of_core=True))
+
+
+def kernel_on_local_pool(state, cfg, depth_mm) -> dict:
+    """The integrate kernel against its plain version on a shard's local
+    pool, at the state's pose and ``depth_mm`` (not counted: the main
+    path's run is over)."""
+    import torch
+
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.ops.depth import depth_to_meters
+    from topfusion_tpu_torch.ops.tsdf_block import integrate_blocks, visible_blocks
+
+    launches = integrate_blocks_cuda.launches
+    raw = depth_to_meters(depth_mm, cfg.preproc.max_sensor_depth)
+    m, T = state.block_map(), state.T_wc
+    vis = visible_blocks(m, cfg.camera, cfg.tsdf, cfg.blockmap, T, depth=raw)
+    args = (cfg.camera, cfg.tsdf, cfg.blockmap, T, raw, vis)
+    k, nk = integrate_blocks_cuda(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    p, np_ = integrate_blocks(m._replace(tsdf=m.tsdf.clone(), weight=m.weight.clone()), *args)
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = launches
+    return dict(equal=torch.equal(k.tsdf, p.tsdf) and torch.equal(k.weight, p.weight)
+                and int(nk) == int(np_), visible=int(nk),
+                max_abs_err=float((k.tsdf.float() - p.tsdf.float()).abs().max()))
+
+
+def drive_sharded_slam(slam, frames, chunk: int, count: bool = False, save=None) -> dict:
+    """Phase 16's main path on one shard: ``frames`` (a tensor on the
+    card) through ``slam.process_chunk`` in chunks of ``chunk`` from a
+    warmed system, the integrate kernel's launch count set to 0 just
+    before and read just after.  Per chunk: ms (host clock; the chunk's
+    fetch syncs), collective calls and bytes, and with ``count`` the host
+    syncs (sync debug mode).  Every solve's collectives and every
+    re-integration's re-fused frames, and every ``remap_store``'s counts,
+    are recorded.  ``save = (after_chunks, path)`` saves the composed
+    checkpoint after that chunk (outside the chunk's timing)."""
+    import warnings
+
+    import torch
+
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+    axis = slam.axis
+    r = dict(infos=[], chunk_ms=[], syncs=[], calls=[], bytes=[], solves=[], refused=[], remaps=[],
+             host=[])
+    reint, solve = slam._reint, slam._optimize_ex
+
+    def recorded_reint(*args):
+        frame_now, num_kf = args[6], args[7]
+        r["refused"].append(num_kf + (frame_now - max(frame_now - slam.R, 0) if slam.R else 0))
+        return reint(*args)
+
+    def recorded_solve(*args):
+        c0, b0 = axis.calls, axis.bytes
+        out = solve(*args)
+        r["solves"].append((axis.calls - c0, axis.bytes - b0))
+        return out
+
+    slam._reint, slam._optimize_ex = recorded_reint, recorded_solve
+    if slam.swap is not None:
+        remap = slam.swap.remap_store
+
+        def recorded_remap(corr):
+            import numpy as np
+
+            host = slam.swap.n_host_blocks
+            stats = remap(corr)
+            cos = np.clip((np.trace(corr[:3, :3]) - 1) / 2, -1.0, 1.0)
+            r["remaps"].append(dict(stats, host_before=host, host_after=slam.swap.n_host_blocks,
+                                    shift_mm=round(float(np.linalg.norm(corr[:3, 3])) * 1000, 3),
+                                    angle_deg=round(float(np.degrees(np.arccos(cos))), 4)))
+            return stats
+
+        slam.swap.remap_store = recorded_remap
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    integrate_blocks_cuda.vector_launches = 0
+    for c0 in range(0, len(frames), chunk):
+        part = frames[c0:c0 + chunk]
+        calls0, bytes0 = axis.calls, axis.bytes
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            if count:
+                torch.cuda.set_sync_debug_mode("warn")
+            try:
+                infos = slam.process_chunk(part)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        r["chunk_ms"].append((time.perf_counter() - t0) * 1000)
+        r["syncs"].append(sum(str(w.message).startswith("called a synchronizing") for w in rec))
+        r["calls"].append(axis.calls - calls0)
+        r["bytes"].append(axis.bytes - bytes0)
+        r["infos"] += infos
+        r["host"].append(slam.swap.n_host_blocks if slam.swap is not None else 0)
+        if save is not None and c0 // chunk + 1 == save[0]:
+            t1 = time.perf_counter()
+            slam.save_checkpoint(save[1])
+            r["save_ms"] = (time.perf_counter() - t1) * 1000
+    torch.cuda.synchronize()
+    r["launches"] = integrate_blocks_cuda.launches
+    r["vector_launches"] = integrate_blocks_cuda.vector_launches
+    slam._reint, slam._optimize_ex = reint, solve
+    return r
+
+
+def sharded_dense(axis, orbit_np) -> dict:
+    """Phase 16 (d) on one shard: the orbit through the sharded dense
+    pipeline at phase 10's full-march configuration, then a timed pass."""
+    import torch
+
+    from topfusion_tpu_torch.parallel import make_sharded_pipeline
+
+    frames = [torch.from_numpy(f).to(axis.device) for f in orbit_np]
+    init, step = make_sharded_pipeline(dense_config(), axis)
+    calls0, bytes0 = axis.calls, axis.bytes
+    state, est, oks = init(), [], []
+    for f in frames:
+        state, aux = step(state, f)
+        est.append(state.T_wc)
+        oks.append(aux.ok)
+    torch.cuda.synchronize()
+    n = len(frames)
+    out = dict(poses=[T.cpu().numpy() for T in est], ok=[bool(x) for x in oks],
+               calls=(axis.calls - calls0) / n, bytes=(axis.bytes - bytes0) / n,
+               digest=state_digest(state))
+    t0 = time.perf_counter()
+    for f in frames:
+        state, _ = step(state, f)
+    torch.cuda.synchronize()
+    out["ms_per_frame"] = (time.perf_counter() - t0) * 1000 / n
+    return out
+
+
+def world1_body(axis, frames_np, orbit_np, ckpt) -> dict:
+    """Phase 16 (a), (c) and the world of 1 of (d), in one NCCL process."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.parallel import ShardedSlamSystem
+    from topfusion_tpu_torch.parallel.multihost import run_block_pipeline_demo
+    from topfusion_tpu_torch.utils.device_info import mesh_banner
+
+    dev = axis.device
+    cfg = slam_config()
+    frames = torch.from_numpy(frames_np).to(dev)
+    slam = ShardedSlamSystem(cfg, axis)
+    slam.warmup(SLAM_CHUNK)
+    save_at = SLAM_SAVE_AT
+    a = drive_sharded_slam(slam, frames, SLAM_CHUNK, count=True, save=(save_at, ckpt))
+    a.update(slam_digest(slam), banner=mesh_banner(axis))
+    a["kernel"] = kernel_on_local_pool(slam.state, slam.pipe.local_cfg, frames[-1])
+    kidx = len(slam.kf_odom_poses) - 1
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    slam._optimize_ex(slam.graph, slam.kf_odom_buf[kidx])
+    torch.cuda.synchronize()
+    a["solve_ms"] = (time.perf_counter() - t0) * 1000
+
+    # (c) A fresh system restored from the checkpoint after SLAM_SAVE_AT
+    # chunks runs the remaining ones: bit-identical to the run above.
+    t0 = time.perf_counter()
+    res = ShardedSlamSystem(cfg, axis)
+    res.restore_checkpoint(ckpt)
+    restore_ms = (time.perf_counter() - t0) * 1000
+    at = res.frame_idx
+    for c0 in range(at, len(frames), SLAM_CHUNK):
+        res.process_chunk(frames[c0:c0 + SLAM_CHUNK])
+    dres = slam_digest(res)
+    same = (np.array_equal(dres["odom"], a["odom"]) and np.array_equal(dres["opt"], a["opt"])
+            and dres["graph"] == a["graph"] and dres["state"] == a["state"]
+            and (dres["loops"], dres["reint"]) == (a["loops"], a["reint"]))
+    t0 = time.perf_counter()
+    demo = run_block_pipeline_demo(axis, 8, ckpt_path=ckpt + "-demo", ckpt_every=2)
+    torch.cuda.synchronize()
+    c = dict(resumed_at=at, same=same, save_ms=a.pop("save_ms"), restore_ms=restore_ms,
+             demo_s=time.perf_counter() - t0, demo_blocks=demo["num_blocks"])
+    return dict(a=a, c=c, d=sharded_dense(axis, orbit_np))
+
+
+def world4_slam_body(axis, frames_np, orbit_np) -> dict:
+    """Phase 16 (b) and the world of 4 of (d), in one world of SHARDS gloo
+    processes sharing the card."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.models.host_cache import ShardedHostCache
+    from topfusion_tpu_torch.ops.blockmap import EMPTY_KEY
+    from topfusion_tpu_torch.parallel import ShardedSlamSystem
+
+    d = sharded_dense(axis, orbit_np)
+    torch.cuda.empty_cache()
+    frames = torch.from_numpy(frames_np).to(axis.device)
+    slam = ShardedSlamSystem(sharded_slam_config(), axis)
+    slam.swap = ShardedHostCache(slam.pipe, evict_batch=SHARDED_SLAM_EVICT,
+                                 restore_batch=SHARDED_SLAM_RESTORE,
+                                 headroom=slam.pipe.local_cfg.blockmap.capacity // 2)
+    slam.warmup(SHARDED_SLAM_CHUNK)
+    b = drive_sharded_slam(slam, frames, SHARDED_SLAM_CHUNK)
+    b.update(slam_digest(slam), rank=axis.rank, host_end=slam.swap.n_host_blocks,
+             local_blocks=int(slam.state.num_blocks),
+             keys=slam.state.bucket_keys[slam.state.bucket_keys != EMPTY_KEY].cpu().numpy(),
+             render=slam.render().cpu().numpy())
+    b["kernel"] = kernel_on_local_pool(slam.state, slam.pipe.local_cfg, frames[-1])
+    return dict(b=b, d=d)
+
+
+def sharded_slam_phase(poses, frames, slam_a, dense_full) -> dict:
+    """Phase 16.  ``slam_a``: phase 12 (a)'s frames and results;
+    ``dense_full``: phase 10's full-march trajectory and state digest.
+    Returns the kernel launches of the sharded SLAM paths."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+    from topfusion_tpu_torch.parallel import spawn_world
+    from topfusion_tpu_torch.parallel.multihost import measure_scaling, measure_scaling_block
+
+    orbit_np = [f.cpu().numpy() for f in frames]
+    pgc = slam_config().posegraph
+    k, gn, cg = pgc.max_keyframes, pgc.gn_iters, pgc.cg_iters
+    solve_calls, solve_bytes = gn * (cg + 3), gn * ((cg + 2) * k * 24 + k * 144)
+
+    # (a) and (c): a world of one NCCL process against phase 12 (a).
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        (w1,) = spawn_world(world1_body, 1, "nccl", "cuda", timeout_s=900,
+                            args=(slam_a["frames"], orbit_np, os.path.join(tmp, "composed")))
+    a, c = w1["a"], w1["c"]
+    n = len(slam_a["frames"])
+    expect = n + sum(a["refused"])
+    print(f"16 (a), world of 1 ({time.perf_counter() - t0:.1f} s with (c), (d) and the spawn): "
+          f"{a['banner']}")
+    print(f"  {n} frames of phase 12 (a) in chunks of {SLAM_CHUNK}: loops {a['loops']}, "
+          f"re-integrations {a['reint']} (re-fusing {a['refused']} frames); kernel launches "
+          f"{a['launches']} ({a['vector_launches']} of the column kernel), implied {expect}; ms per "
+          f"chunk {[round(x, 1) for x in a['chunk_ms']]} (phase 12 (a): "
+          f"{[round(x, 1) for x in slam_a['chunk_ms']]}); host syncs per chunk {a['syncs']}; "
+          f"collectives per chunk {a['calls']}, bytes {a['bytes']}; solves (calls, bytes) "
+          f"{a['solves']} (computed {solve_calls}, {solve_bytes}); a solve on the warm card "
+          f"{a['solve_ms']:.1f} ms; kernel vs plain on the local pool after the run: "
+          f"{'bit-equal' if a['kernel']['equal'] else 'DIFFERENT'}")
+    same = {key: (np.array_equal(a[key], slam_a[key]) if key in ("odom", "opt")
+                  else a[key] == slam_a[key])
+            for key in ("odom", "opt", "graph", "state", "loops", "reint", "num_kf", "num_edges")}
+    print(f"  against phase 12 (a)'s SlamSystem, bit-identical: {same}")
+    check(all(same.values()), f"16 (a): differs from phase 12 (a) in {[k for k, v in same.items() if not v]}")
+    check(all(i["ok"] for i in a["infos"]), "16 (a): a frame failed to track")
+    check(a["launches"] == expect == slam_a["launches"] and a["vector_launches"] == expect,
+          f"16 (a): {a['launches']} launches, the code implies {expect}")
+    for j, syncs in enumerate(a["syncs"]):
+        size = min(SLAM_CHUNK, n - j * SLAM_CHUNK)
+        if not any(i["loop"] for i in a["infos"][j * SLAM_CHUNK:(j + 1) * SLAM_CHUNK]):
+            check(syncs <= size + 3, f"16 (a): chunk {j} of {size} frames synced {syncs} times")
+    check(all(sv == (solve_calls, solve_bytes) for sv in a["solves"]) and a["solves"],
+          f"16 (a): solves issued {a['solves']}, not {solve_calls} calls of {solve_bytes} B")
+    check(a["kernel"]["equal"], "16 (a): kernel and plain differ on the local pool")
+    print(f"16 (c): checkpoint after chunk {SLAM_SAVE_AT} saved in {c['save_ms']:.1f} ms, restored into a fresh "
+          f"system in {c['restore_ms']:.1f} ms at frame {c['resumed_at']}; the resumed run "
+          f"bit-identical to the uninterrupted one: {c['same']}; run_block_pipeline_demo "
+          f"(8 frames, a checkpoint every 2) {c['demo_s']:.2f} s, {c['demo_blocks']} blocks")
+    check(c["same"] and c["resumed_at"] == SLAM_SAVE_AT * SLAM_CHUNK,
+          "16 (c): the resumed run differs")
+
+    # (b) and (d)'s world of SHARDS: gloo processes sharing the card.
+    from topfusion_tpu_torch.io.synthetic import SyntheticScene
+
+    cam = slam_config().camera
+    scene = SyntheticScene()
+    gt_b = out_and_back(SHARDED_SLAM_FRAMES, SHARDED_SLAM_YAW, SHARDED_SLAM_SHIFT)
+    frames_b = np.stack([scene.render_depth_mm(cam, torch.as_tensor(T, device=frames[0].device))
+                         .cpu().numpy() for T in gt_b])
+    t0 = time.perf_counter()
+    ranks = spawn_world(world4_slam_body, SHARDS, "gloo", "cuda", timeout_s=900,
+                        args=(frames_b, orbit_np))
+    world4_s = time.perf_counter() - t0
+    # (d) The sharded dense pipeline at phase 10's full march.
+    d1, d4 = w1["d"], [r["d"] for r in ranks]
+    same1 = (all(np.array_equal(x, y) for x, y in zip(d1["poses"], dense_full["poses"]))
+             and d1["digest"] == dense_full["digest"])
+    ate4 = ate_rmse(d4[0]["poses"], poses, align=False)
+    maps4 = all(x["digest"][k] == d4[0]["digest"][k] for x in d4 for k in x["digest"]
+                if k.startswith("model_"))
+    print(f"16 (d), dense 256^3 full march over the orbit: world of 1 {d1['ms_per_frame']:.2f} "
+          f"ms/frame, {d1['calls']:.0f} gathers and {d1['bytes']:.0f} B per frame, bit-identical "
+          f"to phase 10: {same1}; world of {SHARDS} {[round(x['ms_per_frame'], 2) for x in d4]} "
+          f"ms/frame, {d4[0]['calls']:.0f} gathers and {d4[0]['bytes']:.0f} B per rank per frame, "
+          f"ATE {ate4 * 1000:.3f} mm, model maps identical over the ranks {maps4}")
+    check(same1, "16 (d): the world of 1 differs from phase 10's DensePipeline")
+    check(all(all(x["ok"]) for x in d4) and ate4 < ATE_LIMIT_M, f"16 (d): ATE {ate4} m")
+    check(maps4, "16 (d): the ranks' model maps differ")
+
+    # (e) The scaling harness on this card.
+    cfg_e = bench_config()
+    t0 = time.perf_counter()
+    blk = measure_scaling_block(cfg_e, n_frames=SCALING_FRAMES, device_counts=(1, SHARDS))
+    dense = measure_scaling(dense_config(), n_frames=SCALING_FRAMES, device_counts=(1, SHARDS))
+    print(f"16 (e), one card: overhead and contention, not scaling ({time.perf_counter() - t0:.1f} s): "
+          f"measure_scaling_block {blk}; measure_scaling {dense}")
+    check(blk["efficiency"] is None and dense["efficiency"] is None,
+          "16 (e): an efficiency from processes that share one card")
+
+    bs = [r["b"] for r in ranks]
+    b = bs[0]
+    nb = len(frames_b)
+    odom = ate_rmse(list(b["odom"]), gt_b, align=False)
+    opt = ate_rmse(list(b["opt"]), gt_b, align=False)
+    keys = np.concatenate([x["keys"] for x in bs])
+    host = sum(x["host_end"] for x in bs)
+    live = sum(x["local_blocks"] for x in bs)
+    dropped = sum(i["dropped"] for i in b["infos"])
+    # Blocks the run holds after each chunk's step and eviction: live on
+    # the card (the last frame's total) and on the shards' hosts.
+    held = [b["infos"][min((j + 1) * SHARDED_SLAM_CHUNK, nb) - 1]["blocks"]
+            + sum(x["host"][j] for x in bs) for j in range(len(b["chunk_ms"]))]
+    live_most = SHARDED_SLAM_CAP // 2
+    print(f"16 (b), world of {SHARDS} ({world4_s:.1f} s with (d) and the spawn): "
+          f"{nb} frames out and back ({SHARDED_SLAM_YAW} rad, {SHARDED_SLAM_SHIFT} m at the turn) in "
+          f"chunks of {SHARDED_SLAM_CHUNK}, pool {SHARDED_SLAM_CAP} blocks over the shards, at most "
+          f"{live_most} live after a chunk (the caches' headroom), ring {SHARDED_SLAM_CHUNK}: loops "
+          f"{b['loops']}, re-integrations {b['reint']} (re-fusing "
+          f"{b['refused']} frames); ATE odometry {odom * 1000:.3f} mm, optimized {opt * 1000:.3f} mm; "
+          f"blocks dropped {dropped}, live + host after each chunk {held}, at the end live {live} + "
+          f"host {host}; remap_store {b['remaps']}; launches per rank "
+          f"{[x['launches'] for x in bs]}; ms per chunk {[round(x, 1) for x in b['chunk_ms']]}; "
+          f"collectives per chunk {b['calls']}; kernel vs plain on the local pools: "
+          f"{['bit-equal' if x['kernel']['equal'] else 'DIFFERENT' for x in bs]}")
+    check(all(i["ok"] for x in bs for i in x["infos"]), "16 (b): a frame failed to track")
+    check(b["loops"] >= 1 and b["reint"] >= 1, "16 (b): no loop closed and rebuilt the map")
+    check(opt < ATE_LIMIT_M, f"16 (b): optimized ATE {opt} m")
+    check(dropped == 0, f"16 (b): {dropped} blocks dropped")
+    check(max(held) > live_most,
+          f"16 (b): premise: the run holds {max(held)} blocks, no more than {live_most} live")
+    check(any(m["host_before"] > 0 and m["entries"] > 0 for m in b["remaps"]),
+          "16 (b): remap_store never ran with blocks on the hosts")
+    for x in bs[1:]:
+        for key in ("odom", "opt"):
+            check(np.array_equal(x[key], b[key]), f"16 (b): rank {x['rank']}'s {key} differs")
+        check(x["graph"] == b["graph"], f"16 (b): rank {x['rank']}'s graph differs")
+        check(np.array_equal(x["render"], b["render"]), f"16 (b): rank {x['rank']}'s render differs")
+    check(len(np.unique(keys)) == len(keys), "16 (b): a block is on two shards")
+    for x in bs:
+        want = nb + sum(x["refused"])
+        check(x["launches"] == want == x["vector_launches"],
+              f"16 (b): rank {x['rank']}: {x['launches']} launches, the code implies {want}")
+        check(x["kernel"]["equal"], f"16 (b): rank {x['rank']}: kernel and plain differ")
+
+    return {"slam_sharded_world1": a["launches"],
+            "slam_sharded_world4": sum(x["launches"] for x in bs)}
+
+
 def main() -> int:
     try:
         import torch
@@ -2000,13 +2430,14 @@ def main() -> int:
         took("phase 9, point cloud")
         del pipe, fused
         torch.cuda.empty_cache()
-        dense_phase(frames, rgbs, poses, device)
+        dense_full = dense_phase(frames, rgbs, poses, device)
         took("phase 10, dense")
         torch.cuda.empty_cache()
         launches["step_out_of_core_sweep"], sweep = swap_phase(device)
         took("phase 11, out-of-core sweep")
         torch.cuda.empty_cache()
-        launches.update(slam_phase(device))
+        slam_launches, slam_a = slam_phase(device)
+        launches.update(slam_launches)
         took("phase 12, SLAM")
         launches["step_icp_onehot"] = onehot_phase(frames, poses, est, flat_profile, device)
         took("phase 13, ICP one-hot")
@@ -2015,6 +2446,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update(sharded_phase(poses, frames, phase4, sweep))
         took("phase 15, sharded block map")
+        launches.update(sharded_slam_phase(poses, frames, slam_a, dense_full))
+        took("phase 16, sharded SLAM system")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -26,6 +26,7 @@ import pickle
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from tests.test_block_sharded import make_cfg
 from torch_sharded_world import pipeline_world
@@ -293,3 +294,12 @@ def test_collective_traffic(world, frame):
         got = out["carried"][frame]
         assert got["calls"] == n_iter + 2 + 2 + 1
         assert got["bytes"] == want_bytes
+
+
+def test_spawn_world_defaults_to_the_card():
+    """``spawn_world`` starts its world on the card unless the caller names
+    the CPU, and raises before starting any process where there is none."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a card: the default runs on it")
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        spawn_world(pipeline_world, NS, "gloo", args=("unused",))

@@ -931,6 +931,55 @@ def test_kernel_matches_plain_on_a_shard_local_pool(dtype):
     assert bool(owned.all())
 
 
+
+# ------------------------------------------------------- the sharded SLAM system
+@pytest.mark.cuda
+def test_distributed_solve_on_one_shard_is_optimize_pcg_on_the_card():
+    """``optimize_distributed`` on a world of one NCCL shard is
+    ``optimize_pcg``, bit for bit, on tests/test_parallel.py's drifted
+    graph; it issues gn_iters x (cg_iters + 3) sums and syncs the host
+    nowhere."""
+    if not torch.cuda.is_available():
+        pytest.skip("the sharded card path runs on an NVIDIA GPU")
+    from torch_sharded_world import card_dist_ba_world_of_one
+    from topfusion_tpu_torch.parallel import spawn_world
+
+    (out,) = spawn_world(card_dist_ba_world_of_one, 1, "nccl", "cuda", timeout_s=300)
+    assert out["same"]
+    assert out["calls"] == out["gn"] * (out["cg"] + 3)
+    assert out["bytes"] == out["gn"] * ((out["cg"] + 2) * out["k"] * 24 + out["k"] * 144)
+    assert out["syncs"] == [], out["syncs"]
+
+
+@pytest.mark.cuda
+def test_sharded_slam_world_of_one_is_slam_system_at_vga():
+    """Six VGA frames of the app's operating point in chunks of 3 through
+    a ``ShardedSlamSystem`` on a world of one NCCL shard and through
+    ``SlamSystem``: odometry, graph and map bit-identical; a chunk syncs
+    the host at most n + 3 times (SlamSystem's n + 2, and no more: the
+    decisions' broadcast adds none)."""
+    if not torch.cuda.is_available():
+        pytest.skip("the sharded card path runs on an NVIDIA GPU")
+    import argparse
+
+    import numpy as np
+
+    from torch_sharded_world import card_slam_world_of_one
+    from topfusion_tpu_torch.apps.run_fusion import _app_config
+    from topfusion_tpu_torch.parallel import spawn_world
+
+    cfg = _app_config(argparse.Namespace(config=None, overrides=[], rgb=False))
+    cam = CameraConfig(width=640, height=480, fx=500.0, fy=500.0, cx=320.0, cy=240.0)
+    cfg = dataclasses.replace(cfg, camera=cam)
+    poses = orbit_trajectory(6, max_angle_deg=3.0, max_shift=0.03, seed=1)
+    scene = SyntheticScene()
+    frames = np.stack([scene.render_depth_mm(cam, torch.as_tensor(T)).numpy() for T in poses])
+    (out,) = spawn_world(card_slam_world_of_one, 1, "nccl", "cuda", args=(cfg, frames, 3),
+                         timeout_s=600)
+    assert out["odom"] and out["graph"] and out["state"] and out["ok"]
+    assert all(s <= 3 + 3 for s in out["syncs"]), out["syncs"]
+
+
 def test_slam_cfg_mirrors_the_jax_test_config():
     """slam_cfg is tests/test_slam.make_cfg (this file cannot import that
     one)."""

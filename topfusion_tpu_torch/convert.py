@@ -122,6 +122,11 @@ def sharded_block_state_from_numpy(
     state (``state._asdict()``): dim 0 of every map array, of
     ``num_blocks`` and of ``vis_slots`` stacks the ``ns`` shards' local
     arrays; pose, model maps and counters are replicated."""
+    return block_state_from_numpy(_local_arrays(arrays, rank, ns), device)
+
+
+def _local_arrays(arrays: Mapping[str, Any], rank: int, ns: int) -> Dict[str, Any]:
+    """Shard ``rank``'s slice of a sharded state's global arrays."""
     local = {}
     for name in BlockState._fields:
         v = arrays[name]
@@ -132,7 +137,7 @@ def sharded_block_state_from_numpy(
             if name == "num_blocks":
                 v = v.reshape(())
         local[name] = v
-    return block_state_from_numpy(local, device)
+    return local
 
 
 def sharded_block_state_to_numpy(states) -> Dict[str, Any]:
@@ -232,3 +237,60 @@ def slam_state_from_numpy(values: Mapping[str, Any], slam) -> None:
             _to_tensor(x, dev) for x in values["ring"])
     for name, v in _host_values(values).items():
         setattr(slam, name, v)
+
+
+def _store_numpy(store) -> Dict[tuple, tuple]:
+    return {k: tuple(None if a is None else _as_numpy(a) for a in v) for k, v in store.items()}
+
+
+def sharded_slam_state_to_numpy(slam) -> Dict[str, Any]:
+    """``slam_state_to_numpy`` of a sharded SLAM system, with its host
+    cache under ``swap`` (None without one): ``stores`` (one coord-keyed
+    dict of numpy payloads per shard, in insertion order), ``last_seen``
+    ([shards, local capacity]) and ``clock``.  ``slam`` is a JAX
+    ``ShardedSlamSystem`` (the whole map and every shard's store) or one
+    shard's port ``ShardedSlamSystem`` (its local map and store; put the
+    shards together with ``gather_sharded_slam_state``)."""
+    out = slam_state_to_numpy(slam)
+    sw = slam.swap
+    out["swap"] = None if sw is None else dict(
+        stores=[_store_numpy(st) for st in (sw.stores if hasattr(sw, "stores") else [sw.store])],
+        last_seen=np.atleast_2d(np.array(sw.last_seen)),
+        clock=int(sw._frame),
+    )
+    return out
+
+
+def gather_sharded_slam_state(parts) -> Dict[str, Any]:
+    """The global values of a sharded SLAM system, as a JAX
+    ``ShardedSlamSystem`` holds them, from every shard's
+    ``sharded_slam_state_to_numpy`` in rank order: the map in the global
+    layout, the stores and recency rows stacked, the replicated values
+    from shard 0."""
+    out = dict(parts[0])
+    out["state"] = sharded_block_state_to_numpy([p["state"] for p in parts])
+    if parts[0]["swap"] is not None:
+        out["swap"] = dict(stores=[p["swap"]["stores"][0] for p in parts],
+                           last_seen=np.concatenate([p["swap"]["last_seen"] for p in parts]),
+                           clock=parts[0]["swap"]["clock"])
+    return out
+
+
+def sharded_slam_state_from_numpy(values: Mapping[str, Any], slam) -> None:
+    """Carry the global values of a sharded SLAM system (as
+    ``sharded_slam_state_to_numpy`` gives them for a JAX
+    ``ShardedSlamSystem``) into this shard's port ``ShardedSlamSystem``:
+    its slice of the map (``sharded_block_state_from_numpy``), the
+    replicated graph, keyframe buffers, ring and host bookkeeping
+    (``slam_state_from_numpy``), and its host cache's store, recency row
+    and clock."""
+    rank, ns = slam.axis.rank, slam.axis.size
+    slam_state_from_numpy({**values, "state": _local_arrays(values["state"], rank, ns)}, slam)
+    swap = values.get("swap")
+    if (swap is None) != (slam.swap is None):
+        raise ValueError("one system has a host cache and the other not")
+    if swap is not None:
+        slam.swap.store = {k: tuple(None if a is None else _to_tensor(a, "cpu") for a in v)
+                           for k, v in swap["stores"][rank].items()}
+        slam.swap.last_seen = np.array(swap["last_seen"][rank])
+        slam.swap._frame = int(swap["clock"])

@@ -25,7 +25,9 @@ by host memory, not by the pool's capacity.
 keeps its own store and decides for its own blocks.  Ownership is static
 by hash, so a block evicted from a shard restores into the same shard,
 and since evict and restore hold no collective, shards may swap
-different amounts at different steps.
+different amounts at different steps.  Only ``remap_store`` holds one (a
+gather of the stores' entries, since a re-keyed block can change its
+shard), and every shard calls it.
 
 Payloads stay in the POOL dtype as CPU tensors (numpy has no bfloat16),
 so evict -> restore is bit-exact for float32, int16 and bfloat16 pools.
@@ -327,16 +329,61 @@ class ShardedHostCache(HostBlockCache):
         self._drop_restored(sel, ok)
         return state
 
-    def remap_store(self, corr: np.ndarray) -> None:
-        """Not ported: a re-keyed block may change its owning shard, so
-        carrying the stores through a map correction needs an exchange
-        between the shards' processes.  Its one caller is
-        ``ShardedSlamSystem``, which is not ported yet."""
-        raise NotImplementedError(
-            "ShardedHostCache.remap_store moves blocks between the shards' "
-            "processes; it comes with ShardedSlamSystem, its only caller, which "
-            "is not ported yet"
-        )
+    def remap_store(self, corr: np.ndarray) -> dict:
+        """Carry every shard's store through a map correction (see
+        ``HostBlockCache.remap_store``).  A re-keyed block's owner can
+        change (ownership is ``hash(coords) & (nb_global - 1)) % ns``,
+        ``ops/blockmap._bucket_owner``, and the key moved), so each shard
+        re-keys its own store and the entries are exchanged in one
+        gather.  Every shard then rebuilds its store from the entries it
+        owns in the order of the JAX package's loop, source shard by
+        source shard and each in insertion order, and merges collisions
+        as that loop does (the weight sum in float64, the weight clamped
+        at ``max_weight``, the stored products wrapping in their dtype):
+        float merges depend on their order, and restores follow the
+        store's.  Every shard calls it.  Returns the counts over the
+        shards: entries, re-keyed, re-owned and merged."""
+        axis = self.pipe.axis
+        ns, rank = axis.size, axis.rank
+        block_metric = self.bm_cfg.block_size * self.tsdf_cfg.voxel_size
+        nb_global = self.bm_cfg.capacity * ns  # local buckets * ns
+        mine = []
+        if self.store:
+            corr = np.asarray(corr, np.float64)
+            keys = np.asarray(list(self.store.keys()), np.int64)
+            centers = (keys + 0.5) * block_metric
+            moved = centers @ corr[:3, :3].T + corr[:3, 3]
+            nk = np.floor(moved / block_metric).astype(np.int64)
+            # The int32 Teschner hash's low bits: the mask makes the int64
+            # products equal to the device's wrapping int32 ones.
+            h = (nk[:, 0] * 73856093) ^ (nk[:, 1] * 19349669) ^ (nk[:, 2] * 83492791)
+            owner = (h & (nb_global - 1)) % ns
+            mine = [(old, tuple(int(c) for c in new), int(o), payload)
+                    for (old, payload), new, o in zip(self.store.items(), nk, owner)]
+        every = axis.all_gather_object(mine)
+        stats = dict(entries=0, rekeyed=0, reowned=0, merged=0)
+        keys_of = [set() for _ in range(ns)]  # every shard's new keys, for the counts
+        new_store: Dict[Tuple[int, int, int], tuple] = {}
+        for src, entries in enumerate(every):
+            stats["entries"] += len(entries)
+            for old, key, owner, (t, w, c) in entries:
+                stats["rekeyed"] += key != old
+                stats["reowned"] += owner != src
+                stats["merged"] += key in keys_of[owner]
+                keys_of[owner].add(key)
+                if owner != rank:
+                    continue
+                if key in new_store:
+                    t0, w0, c0 = new_store[key]
+                    wsum = torch.clamp(w0.to(torch.float64) + w.to(torch.float64), min=1e-6)
+                    t = (t0 * w0 + t * w) / wsum
+                    if c0 is not None and c is not None:
+                        c = (c0 * w0[..., None] + c * w[..., None]) / wsum[..., None]
+                    w01 = w0 + w
+                    w = torch.clamp(w01.to(_NUMPY_FLOAT_OF[w01.dtype]), max=self.tsdf_cfg.max_weight)
+                new_store[key] = (t, w, c)
+        self.store = new_store
+        return stats
 
 
 def host_visible_mask(

@@ -72,9 +72,19 @@ class DensePipeline:
         state, aux = pipe.step(state, depth_mm)
     """
 
+    # The voxels of dim 0 this pipeline's volume holds: all of them.  The
+    # sharded dense pipeline (parallel/sharded_pipeline.py) holds a slab
+    # and gathers the whole volume for the raycast (``_whole``).
+    slab = None
+
     def __init__(self, cfg: PipelineConfig, device="cuda"):
         self.cfg = cfg
         self.device = entry_device(device)
+
+    def _whole(self, *grids: torch.Tensor) -> tuple:
+        """The whole grids (of dims ``cfg.dense.dims``) that the raycast
+        and the renders read, from this pipeline's part of them."""
+        return grids
 
     def init(self) -> DenseState:
         cfg = self.cfg
@@ -140,27 +150,28 @@ class DensePipeline:
         # Integration from the RAW metric depth; an all-invalid depth
         # image integrates nothing, which discards the failed frame.
         raw_eff = torch.where(do_reset, 0.0, raw_m)
-        vol = integrate_dense(vol, cam, cfg.tsdf, cfg.dense, T_int, raw_eff)
+        vol = integrate_dense(vol, cam, cfg.tsdf, cfg.dense, T_int, raw_eff, self.slab)
 
         color = state.color
         if cfg.tsdf.use_color and rgb is not None:
             color = torch.where(do_reset, 0.0, color)
             color = integrate_color_dense(
                 color, vol, cam, cfg.tsdf, cfg.dense, T_int, raw_eff,
-                rgb.to(self.device),
+                rgb.to(self.device), self.slab,
             )
 
         # Raycast for the next frame's model maps: a band around the depth
         # just fused when guided, else the whole volume.
+        whole = DenseVolume(*self._whole(vol.tsdf, vol.weight))
         if cfg.raycast.guided:
             rc = raycast_dense(
-                vol, cam, cfg.tsdf, cfg.dense, cfg.raycast, T_int,
+                whole, cam, cfg.tsdf, cfg.dense, cfg.raycast, T_int,
                 expected_depth=raw_eff,
                 depth_margin=cfg.icp.dist_threshold + 3.0 * cfg.tsdf.trunc_dist,
                 max_steps=cfg.raycast.guided_max_steps,
             )
         else:
-            rc = raycast_dense(vol, cam, cfg.tsdf, cfg.dense, cfg.raycast, T_int)
+            rc = raycast_dense(whole, cam, cfg.tsdf, cfg.dense, cfg.raycast, T_int)
         mp, mn = [rc.points], [rc.normals]
         for _ in range(cfg.preproc.pyramid_levels - 1):
             p, n = resize_points_normals(mp[-1], mn[-1])
@@ -186,16 +197,14 @@ class DensePipeline:
         return new_state, aux
 
     # ------------------------------------------------------------------
-    def _raycast(self, state: DenseState) -> RaycastResult:
+    def _raycast(self, vol: DenseVolume, T_wc: torch.Tensor) -> RaycastResult:
         cfg = self.cfg
-        return raycast_dense(
-            state.volume(), cfg.camera, cfg.tsdf, cfg.dense, cfg.raycast, state.T_wc
-        )
+        return raycast_dense(vol, cfg.camera, cfg.tsdf, cfg.dense, cfg.raycast, T_wc)
 
     def render(self, state: DenseState) -> torch.Tensor:
         """Phong-shaded uint8 [H, W, 3] view from the tracked pose, lit
         from above and behind the camera."""
-        rc = self._raycast(state)
+        rc = self._raycast(DenseVolume(*self._whole(state.tsdf, state.weight)), state.T_wc)
         eye = state.T_wc[:3, 3]
         light = eye + vec((0.0, -1.0, -1.0), self.device)
         return phong_shade(rc.points, rc.normals, light, eye)
@@ -204,9 +213,10 @@ class DensePipeline:
         """Fused-color view from the tracked pose, uint8 [H, W, 3]: the
         color of the voxel nearest each hit (black without a color grid)."""
         cfg = self.cfg
-        rc = self._raycast(state)
+        tsdf, weight, color = self._whole(state.tsdf, state.weight, state.color)
+        rc = self._raycast(DenseVolume(tsdf, weight), state.T_wc)
         origin = vec(cfg.dense.origin, self.device)
         pv = true_div(rc.points - origin, cfg.tsdf.voxel_size)
-        col = sample_color_dense(state.color, pv, state.color.shape[:3])
+        col = sample_color_dense(color, pv, color.shape[:3])
         col = torch.where(rc.hit[..., None], col, 0.0)
         return (torch.clamp(col, 0.0, 1.0) * 255.0).to(torch.uint8)

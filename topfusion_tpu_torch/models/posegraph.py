@@ -408,12 +408,17 @@ def _pcg_solve(
     k_cap: int,
     damping: float,
     cg_iters: int,
+    axis=None,
 ) -> torch.Tensor:
     """Solve (H + damping I) dx = -b matrix-free with block-Jacobi PCG.
 
     H = sum_e w_e J_e^T J_e is never formed; a Hessian-vector product is
     two [E,6,6]x[E,6] batched products and one segment sum.  Gauge: node 0
-    pinned (its block acts as identity)."""
+    pinned (its block acts as identity).  With ``axis`` (a
+    ``parallel.collectives.MapAxis``) the edge arrays are this member's
+    share and each segment sum is summed over the members: a [K,6] per
+    Hessian-vector product and for the gradient, a [K,6,6] for the
+    preconditioner."""
     dev = A.device
     E = edge_i.shape[0]
     nodes = torch.arange(k_cap, dtype=edge_i.dtype, device=dev)
@@ -425,7 +430,8 @@ def _pcg_solve(
     def seg(gi, gj):
         """sum over the edges at each node: [E, ...] -> [K, ...]."""
         shape = (k_cap,) + gi.shape[1:]
-        return (inc_i @ gi.reshape(E, -1) + inc_j @ gj.reshape(E, -1)).reshape(shape)
+        out = (inc_i @ gi.reshape(E, -1) + inc_j @ gj.reshape(E, -1)).reshape(shape)
+        return out if axis is None else axis.psum(out)
 
     def mv(M, x):     # [N,a,b] x [N,b] -> [N,a]
         return (M @ x[..., None])[..., 0]

@@ -82,8 +82,7 @@ class SlamSystem:
         # Shade the model maps the step already made into a display image
         # inside the chunk (one elementwise pass, not a raycast).
         self.render_in_chunk = render_in_chunk
-        self.pipe = BlockPipeline(cfg, self.device)
-        self.state: BlockState = self.pipe.init()
+        self._build_pipe()
         self.graph: PoseGraph = make_pose_graph(pgc, self.cam_l, self.device)
         self.kf_depth_buf, self.kf_odom_buf, ring = self._buffers()
         # Re-integration ring (reint_ring > 0): the last R raw depths, their
@@ -102,9 +101,26 @@ class SlamSystem:
         # restore them on frustum re-entry.
         self.swap = None
         if cfg.blockmap.out_of_core:
-            from .host_cache import HostBlockCache
+            self._attach_swap()
 
-            self.swap = HostBlockCache(cfg.blockmap, cfg.tsdf, cfg.camera, device=self.device)
+    # ------------------------------------------------------------------
+    # Construction hooks: the sharded system (parallel/sharded_slam.py)
+    # replaces the pipeline, the cache, the solve, the fuse-at-pose, the
+    # model-map refresh and the host fetch, and inherits the rest.
+    def _build_pipe(self) -> None:
+        self.pipe = BlockPipeline(self.cfg, self.device)
+        self.state: BlockState = self.pipe.init()
+
+    def _attach_swap(self) -> None:
+        from .host_cache import HostBlockCache
+
+        cfg = self.cfg
+        self.swap = HostBlockCache(cfg.blockmap, cfg.tsdf, cfg.camera, device=self.device)
+
+    def _to_host(self, t: torch.Tensor) -> np.ndarray:
+        """A packed result of the chunk or the solve on the host, the
+        chunk's decisions among it."""
+        return t.cpu().numpy()
 
     # ------------------------------------------------------------------
     def _buffers(self):
@@ -212,8 +228,7 @@ class SlamSystem:
         return (state, graph, kf_buf, kf_odom_buf, ring, poses, auxes,
                 found, added, img, loop_info)
 
-    @staticmethod
-    def _fetch(poses, auxes, found, added, loop_info) -> dict:
+    def _fetch(self, poses, auxes, found, added, loop_info) -> dict:
         """The chunk's results on the host, by ONE device-to-host copy of
         one packed float64 tensor (exact for the float32 poses and the
         integer counts)."""
@@ -230,7 +245,8 @@ class SlamSystem:
             torch.stack([loop_info.n_closed.to(torch.float64),
                          loop_info.inliers.to(torch.float64),
                          loop_info.residual.to(torch.float64)]),
-        ]).cpu().numpy()
+        ])
+        packed = self._to_host(packed)
         k = 16 * n
         aux = packed[k: k + len(_AUX_FIELDS) * n].reshape(n, len(_AUX_FIELDS))
         rest = packed[k + len(_AUX_FIELDS) * n:]
@@ -430,7 +446,7 @@ class SlamSystem:
             kidx = len(self.kf_odom_poses) - 1
             kf_odom_last = self.kf_odom_buf[kidx].clone()
             self.graph, kf_opt_last, moved = self._optimize_ex(self.graph, kf_odom_last)
-            host = torch.cat([kf_opt_last.reshape(-1), moved.reshape(1)]).cpu().numpy()
+            host = self._to_host(torch.cat([kf_opt_last.reshape(-1), moved.reshape(1)]))
             kf_opt_last_np, moved = host[:16].reshape(4, 4), float(host[16])
             self.loops_closed += 1
             infos[0]["loop"] = True

@@ -79,10 +79,11 @@ def voxel_center_axes(dims, voxel: float, origin, device):
     return axes
 
 
-def _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, image_shape):
+def _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, image_shape, slab=None):
     """Every voxel centre projected into an image of ``image_shape`` =
     (h, w) taken at ``T_wc``: (z, in_bounds, row, column), each
-    [D0, D1, D2].  Row and column are clamped into the image (int64, for
+    [D0, D1, D2] (with ``slab = (lo, hi)``, the voxels ``lo <= i0 < hi``
+    only, at their places in the whole grid: [hi - lo, D1, D2]).  Row and column are clamped into the image (int64, for
     indexing); ``in_bounds`` says whether the rounded pixel was inside it
     and z inside the frustum.  A pixel far off the image converts to
     int32 differently on the CPU and on the card; ``in_bounds`` is false
@@ -91,6 +92,8 @@ def _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, image_shape):
     x, y, z = voxel_center_axes(
         dense_cfg.dims, tsdf_cfg.voxel_size, dense_cfg.origin, T_wc.device
     )
+    if slab is not None:
+        x = x[slab[0]:slab[1]]
     xc, yc, zc = transform_xyz(se3_inverse(T_wc), x, y, z)
     uf, vf = project_xyz(cam, xc, yc, zc)
     u = torch.round(uf).to(torch.int32)
@@ -109,12 +112,14 @@ def integrate_dense(
     dense_cfg: DenseVolumeConfig,
     T_wc: torch.Tensor,
     depth: torch.Tensor,
+    slab=None,
 ) -> DenseVolume:
     """Fuse one metric depth image [H, W] into the volume at pose ``T_wc``:
     one elementwise pass over all voxels plus a depth gather.  Returns a
-    new volume; ``vol`` is not written."""
+    new volume; ``vol`` is not written.  With ``slab = (lo, hi)``, ``vol``
+    is the slab ``lo <= i0 < hi`` of the grid ``dense_cfg.dims``."""
     mu = tsdf_cfg.trunc_dist
-    z, in_bounds, vc, uc = _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, depth.shape)
+    z, in_bounds, vc, uc = _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, depth.shape, slab)
     d = depth[vc, uc]
 
     eta = d - z
@@ -141,13 +146,14 @@ def integrate_color_dense(
     T_wc: torch.Tensor,
     depth: torch.Tensor,
     rgb: torch.Tensor,
+    slab=None,
 ) -> torch.Tensor:
     """Fuse an RGB image [H, W, 3] (uint8, or float in [0, 1]) into the
     color grid: a running average with the weights the depth fusion left
     in ``vol``, taken only by voxels within mu/4 of the observed surface.
-    Returns a new grid."""
+    Returns a new grid.  ``slab`` as for ``integrate_dense``."""
     mu = tsdf_cfg.trunc_dist
-    z, in_bounds, vc, uc = _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, depth.shape)
+    z, in_bounds, vc, uc = _project_voxels(cam, tsdf_cfg, dense_cfg, T_wc, depth.shape, slab)
     d = depth[vc, uc]
     c_obs = rgb[vc, uc].to(torch.float32)
     if rgb.dtype == torch.uint8:

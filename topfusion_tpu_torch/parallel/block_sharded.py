@@ -45,7 +45,7 @@ from typing import Tuple
 import torch
 
 from ..config import PipelineConfig, resolve_pallas_integrate
-from ..models.block_pipeline import BlockState, BlockStepAux, shade
+from ..models.block_pipeline import BlockPipeline, BlockState, BlockStepAux, shade
 from ..ops.blockmap import make_block_map, select_block_map
 from ..ops.cuda.integrate import integrate_blocks_cuda
 from ..ops.depth import preprocess_depth
@@ -128,20 +128,18 @@ class ShardedBlockPipeline:
             ),
         )
 
-    # ------------------------------------------------------------------
-    def _step(self, state: BlockState, depth_mm: torch.Tensor, rgb=None):
-        """The ``BlockPipeline._step`` surface: color fusion is not sharded."""
-        if rgb is not None:
-            raise NotImplementedError("the sharded pipeline does not fuse color")
-        return self.step(state, depth_mm)
+    write_map = staticmethod(BlockPipeline.write_map)
 
+    # ------------------------------------------------------------------
     def step(
-        self, state: BlockState, depth_mm: torch.Tensor
+        self, state: BlockState, depth_mm: torch.Tensor, rgb=None
     ) -> Tuple[BlockState, BlockStepAux]:
         """Fuse one depth frame [H, W] (u16 or integer millimetres), the
         same frame on every shard.  ``aux``'s counts are totals over the
         shards; the rest of ``aux`` and the pose are the same on every
-        shard."""
+        shard.  Color fusion is not sharded: ``rgb`` must be None."""
+        if rgb is not None:
+            raise NotImplementedError("the sharded pipeline does not fuse color")
         lc = self.local_cfg
         cam, bm, axis, ns = lc.camera, lc.blockmap, self.axis, self.ns
         dev = self.device

@@ -13,6 +13,12 @@ collectives:
     lax.all_gather(tiled=True)  -> MapAxis.all_gather_tiled
                                    (all_gather into a list, then cat)
 
+and two that a single SPMD program does not need: ``MapAxis.broadcast``
+(member 0's tensor to every member: where the members' host code
+branches on a fetched value, they branch on the same one) and
+``MapAxis.all_gather_object`` (picklable host values, e.g. a host
+cache's store entries).
+
 Every member must issue the same collectives in the same order, so no
 caller may branch in Python on a value that differs between shards.
 
@@ -27,6 +33,8 @@ one member's part), for per-frame traffic figures.
 """
 
 from __future__ import annotations
+
+import pickle
 
 import torch
 import torch.distributed as dist
@@ -90,6 +98,23 @@ class MapAxis:
         dist.all_gather(parts, src, group=self.group)
         out = torch.cat(parts)
         return out.to(torch.bool) if t.dtype == torch.bool else out
+
+    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
+        """Member 0's ``t`` on every member (a new tensor)."""
+        self._count(t)
+        buf = t.contiguous().clone()
+        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
+        dist.broadcast(buf, src=src, group=self.group)
+        return buf
+
+    def all_gather_object(self, obj) -> list:
+        """Every member's picklable ``obj`` in rank order.  Counts one
+        call and this member's pickled size."""
+        self.calls += 1
+        self.bytes += len(pickle.dumps(obj))
+        out = [None] * self.size
+        dist.all_gather_object(out, obj, group=self.group)
+        return out
 
     def __repr__(self) -> str:
         return (f"MapAxis(rank={self.rank}, size={self.size}, backend={self.backend!r}, "

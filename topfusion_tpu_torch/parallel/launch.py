@@ -7,7 +7,10 @@ has initialized CUDA cannot fork), joins them into one process group
 through a ``FileStore`` in a temporary directory (no TCP port, so
 concurrent worlds never race for one), and calls
 ``fn(axis, *args)`` in each, with ``axis`` the ``MapAxis`` of the whole
-world on ``device``.  It returns the ranks' return values in rank order,
+world on ``device``: the card unless the caller names another (a
+``RuntimeError`` where there is none).  On the card, rank r takes card
+``r % cards`` unless ``device`` names one: a world of NCCL processes, each
+on a card of its own, or gloo processes sharing cards.  It returns the ranks' return values in rank order,
 passed back through pickle files that the children write.
 
 ``fn`` must be importable by the children: a module-level function of a
@@ -45,7 +48,8 @@ def _child(fn, rank, ns, backend, device, store_path, out_dir, args, threads) ->
             torch.set_num_threads(threads)
         dev = torch.device(device)
         if dev.type == "cuda":
-            dev = torch.device("cuda", 0 if dev.index is None else dev.index)
+            index = rank % torch.cuda.device_count() if dev.index is None else dev.index
+            dev = torch.device("cuda", index)
             torch.cuda.set_device(dev)
         store = dist.FileStore(store_path, ns)
         dist.init_process_group(backend, store=store, rank=rank, world_size=ns,
@@ -61,21 +65,20 @@ def _child(fn, rank, ns, backend, device, store_path, out_dir, args, threads) ->
         raise
 
 
-def spawn_world(fn, ns: int, backend: str = "gloo", device="cpu", args=(),
+def spawn_world(fn, ns: int, backend: str = "gloo", device="cuda", args=(),
                 timeout_s: float = 900.0, threads: int | None = None) -> list:
     """Run ``fn(axis, *args)`` in a world of ``ns`` spawned processes on
-    ``backend`` with shards on ``device``; returns their results in rank
-    order.  ``threads`` sets each child's ``torch.set_num_threads``."""
-    import torch
+    ``backend`` with shards on ``device`` (the card unless the caller
+    names another); returns their results in rank order.  ``threads``
+    sets each child's ``torch.set_num_threads``."""
+    from ..utils.device_info import entry_device
 
     if ns < 1:
         raise ValueError(f"spawn_world: {ns} processes")
-    dev = torch.device(device)
+    dev = entry_device(device)
     if dev.type == "cuda":
-        from ..utils.device_info import entry_device
         from ..ops.cuda.build import load_library
 
-        entry_device(dev)
         load_library("integrate")
     with tempfile.TemporaryDirectory() as tmp:
         store_path = os.path.join(tmp, "store")
