@@ -18,6 +18,7 @@ import dataclasses
 import math
 import warnings
 
+import numpy as np
 import pytest
 import torch
 
@@ -978,6 +979,77 @@ def test_sharded_slam_world_of_one_is_slam_system_at_vga():
                          timeout_s=600)
     assert out["odom"] and out["graph"] and out["state"] and out["ok"]
     assert all(s <= 3 + 3 for s in out["syncs"]), out["syncs"]
+
+
+# ----------------------------------------------------------- the stream pipeline
+@pytest.fixture(scope="module")
+def stream_card():
+    """A ``2 x 1`` stream world of two gloo processes sharing the card over
+    the 8-frame test orbit at the 80x64 test config, and ``run_lockstep``
+    over the same frames in this process on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("the stream pipeline's card path runs on an NVIDIA GPU")
+    from torch_sharded_world import card_stream_world, tensor_digest
+    from topfusion_tpu_torch.config import tiny_test_config
+    from topfusion_tpu_torch.parallel import spawn_world
+    from topfusion_tpu_torch.parallel.stream_pipeline import run_lockstep
+
+    cfg = tiny_test_config()
+    poses = orbit_trajectory(8, max_angle_deg=3.0, max_shift=0.03, seed=11)
+    scene = SyntheticScene()
+    frames = [scene.render_depth_mm(cfg.camera, torch.as_tensor(T)).numpy() for T in poses]
+    ranks = spawn_world(card_stream_world, 2, "gloo", "cuda", args=(cfg, frames), timeout_s=300)
+    dev = torch.device("cuda")
+    (s0, r0), (s1, r1), lposes = run_lockstep(
+        cfg, [torch.from_numpy(f).to(dev) for f in frames], dev)
+    lock = dict(stage0=tensor_digest(s0), reg0=tensor_digest(r0), stage1=tensor_digest(s1),
+                reg1=tensor_digest(r1), poses=lposes.cpu().numpy())
+    return dict(cfg=cfg, n=len(frames), ranks=ranks, lock=lock)
+
+
+@pytest.mark.cuda
+def test_stream_world_is_the_lockstep_on_the_card(stream_card):
+    """Two gloo processes sharing the card step the stream pipeline
+    exactly as its two stage functions in lockstep in one process: stage
+    0's trajectory, state and register and stage 1's map, model maps and
+    register, to the bit; stage 1 launches the integrate kernel once a
+    step (the first on a list with nothing visible), stage 0 never."""
+    s0, s1 = stream_card["ranks"]
+    lock = stream_card["lock"]
+    assert (s0["stage"], s1["stage"]) == (0, 1)
+    np.testing.assert_array_equal(s0["poses"], lock["poses"])
+    assert s0["digest"] == lock["stage0"] and s0["reg_digest"] == lock["reg0"]
+    assert s1["digest"] == lock["stage1"] and s1["reg_digest"] == lock["reg1"]
+    assert (s0["launches"], s1["launches"]) == (0, stream_card["n"])
+
+
+@pytest.mark.cuda
+def test_stream_step_syncs_per_stage(stream_card):
+    """Host syncs of a warm stream step under gloo, as PyTorch's sync
+    debug mode detects them in the calling thread: stage 0 syncs once, in
+    ICP's eigvalsh, stage 1 never.  gloo stages the card's tensors
+    through the host in its own worker threads, where the debug mode
+    only prints a warning to stderr."""
+    s0, s1 = stream_card["ranks"]
+    assert len(s0["syncs"]) == 1, s0["syncs"]
+    assert len(s1["syncs"]) == 0, s1["syncs"]
+
+
+@pytest.mark.cuda
+def test_stream_link_bytes_per_step(stream_card):
+    """One step moves the forward buffer (pose, depth, two flags) and the
+    backward buffer (two 3-level model-map pyramids, their pose, a flag)
+    over the link, as two broadcasts counted on both processes."""
+    from topfusion_tpu_torch.parallel.stream_pipeline import link_bytes
+
+    cfg = stream_card["cfg"]
+    cam = cfg.camera
+    pix = sum(cam.at_level(i).height * cam.at_level(i).width
+              for i in range(cfg.preproc.pyramid_levels))
+    fwd, bwd = (16 + cam.height * cam.width + 2) * 4, (6 * pix + 16 + 1) * 4
+    assert link_bytes(cfg) == (fwd, bwd)
+    for out in stream_card["ranks"]:
+        assert out["link"] == (2, fwd + bwd)
 
 
 def test_slam_cfg_mirrors_the_jax_test_config():

@@ -591,3 +591,172 @@ def card_slam_world_of_one(axis: MapAxis, cfg, frames_np, chunk: int) -> dict:
             [*sh.state[:8], *sh.state.model_points, sh.state.vis_slots],
             [*ref.state[:8], *ref.state.model_points, ref.state.vis_slots])),
         ok=all(bool(np.all(np.isfinite(p))) for p in sh.odom_poses), syncs=syncs)
+
+
+# ------------------------------------------------------ the stream pipeline
+def tensor_digest(tree) -> dict:
+    """sha256 of every tensor of a NamedTuple of tensors (per-level tuples
+    by level), by field: to compare results across processes to the bit."""
+    import hashlib
+
+    out = {}
+    for name, v in tree._asdict().items():
+        for i, t in enumerate(v if isinstance(v, tuple) else (v,)):
+            raw = t.detach().contiguous().reshape(-1).view(torch.uint8).cpu().numpy()
+            out[f"{name}[{i}]"] = hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def stream_numpy(state, reg) -> dict:
+    """A process's state and register as numpy, the pools cut to their
+    live rows (the rest is the empty value in both packages)."""
+    from topfusion_tpu_torch.convert import _state_to_numpy
+
+    st = block_state_to_numpy(state)
+    n = int(st["num_blocks"])
+    st["tsdf"], st["weight"] = st["tsdf"][:n], st["weight"][:n]
+    return dict(state=st, reg=_state_to_numpy(reg))
+
+
+def sparse_pools(state: dict, fill: dict) -> dict:
+    """``state`` (numpy fields) with its pools ``tsdf`` and ``weight``
+    stored as the rows that differ from ``fill[name]`` (index arrays over
+    the leading dims and the rows): a JAX stream state at the test config
+    is mostly empty pool, too large to hand to a world whole."""
+    out = dict(state)
+    for name, value in fill.items():
+        a = np.asarray(state[name])
+        rows = np.nonzero((a != value).reshape(a.shape[:2] + (-1,)).any(axis=-1))
+        out[name] = ("sparse", a.shape, a.dtype, value, rows, a[rows])
+    return out
+
+
+def dense_pools(state: dict) -> dict:
+    """The inverse of ``sparse_pools``."""
+    out = dict(state)
+    for name, v in state.items():
+        if isinstance(v, tuple) and len(v) == 6 and isinstance(v[0], str) and v[0] == "sparse":
+            _, shape, dtype, value, rows, vals = v
+            a = np.full(shape, value, dtype=dtype)
+            a[rows] = vals
+            out[name] = a
+    return out
+
+
+def _stream_carried(pipe, frames, inputs) -> list:
+    """Each frame stepped from the JAX state and register before it:
+    this process's numpy state and register after it, and the link's and
+    the map row's calls and bytes in the step."""
+    from topfusion_tpu_torch.convert import stream_state_from_numpy
+
+    mesh, out = pipe.mesh, []
+    for f, (st_np, rg_np) in zip(frames, inputs):
+        st, rg = stream_state_from_numpy(dense_pools(st_np), rg_np, mesh.stage, mesh.map.rank,
+                                         mesh.n_map, "cpu")
+        before = (mesh.link.calls, mesh.link.bytes, mesh.map.calls, mesh.map.bytes)
+        st, rg = pipe.step(st, rg, f)
+        after = (mesh.link.calls, mesh.link.bytes, mesh.map.calls, mesh.map.bytes)
+        out.append(dict(stream_numpy(st, rg), traffic=[b - a for a, b in zip(before, after)]))
+    return out
+
+
+def stream_world(axis: MapAxis, inputs_path: str) -> dict:
+    """Everything a stream-pipeline test checks, in one world of ``2 x
+    n_map`` processes (``inputs["n_map"]``):
+
+    * ``init``: this process's empty state and register;
+    * ``carried`` / ``reset_carried``: the orbit's and the reset
+      sequence's frames, each stepped from the JAX values before it;
+    * ``free``: the orbit from ``init`` (poses, the last state and
+      register, their digests); ``reset_free`` and ``fresh``: the reset
+      sequence and its good frames alone from ``init`` (poses, counters,
+      blocks);
+    * ``broadcast``: ``MapAxis.broadcast`` over this process's pair group
+      from member 1 and from member 0 (the default);
+    * ``dryrun``: ``dryrun_stream_step`` on this world;
+    * with ``n_map`` 1: ``run_stream`` on its default mesh, the mesh's
+      refusals, and on rank 0 the digests of ``run_lockstep`` over the
+      orbit in this process.
+    """
+    from topfusion_tpu_torch.parallel import (
+        StreamBlockPipeline,
+        dryrun_stream_step,
+        make_pipe_mesh,
+        run_stream,
+    )
+    from topfusion_tpu_torch.parallel.stream_pipeline import run_lockstep
+
+    with open(inputs_path, "rb") as f:
+        inp = pickle.load(f)
+    cfg, n_map = inp["cfg"], inp["n_map"]
+    frames = [torch.from_numpy(f) for f in inp["frames"]]
+    mesh = make_pipe_mesh(2, n_map, "cpu")
+    pipe = StreamBlockPipeline(cfg, mesh, "cpu")
+    st0, rg0 = pipe.init()
+    out = dict(rank=axis.rank, stage=mesh.stage, map_rank=mesh.map.rank,
+               local_cfg=pipe.local_cfg, init=stream_numpy(st0, rg0),
+               init_pool=(tuple(st0.tsdf.shape), str(st0.tsdf.dtype)))
+    out["carried"] = _stream_carried(pipe, frames, inp["jax_inputs"])
+
+    st, rg, poses = pipe.run(st0, rg0, frames)
+    out["free"] = dict(poses=poses.numpy(), last=stream_numpy(st, rg),
+                       digest=tensor_digest(st), reg_digest=tensor_digest(rg))
+
+    reset_frames = [torch.from_numpy(f) for f in inp["reset_frames"]]
+    out["reset_carried"] = _stream_carried(pipe, reset_frames, inp["jax_reset_inputs"])
+    st, rg, poses = pipe.run(st0, rg0, reset_frames)
+    out["reset_free"] = dict(poses=poses.numpy(), resets=int(st.resets), frame=int(st.frame),
+                             num_blocks=int(st.num_blocks))
+    st, rg, poses = pipe.run(st0, rg0, reset_frames[: inp["n_good"]])
+    out["fresh"] = dict(num_blocks=int(st.num_blocks))
+
+    link = mesh.link
+    mine = torch.full((3,), float(axis.rank))
+    calls = link.calls
+    out["broadcast"] = dict(from1=link.broadcast(mine, src=1).tolist(),
+                            from0=link.broadcast(mine).tolist(), calls=link.calls - calls)
+
+    dryrun_stream_step(2 * n_map, device="cpu")
+    out["dryrun"] = True
+
+    if n_map == 1:
+        out["run_stream"] = run_stream(cfg, torch.stack(frames), device="cpu")
+        refused = []
+        for args in ((2, 2), (3, 1), (2, 0)):
+            try:
+                make_pipe_mesh(*args, device="cpu")
+                refused.append(None)
+            except ValueError as e:
+                refused.append(str(e))
+        out["refused"] = refused
+        if axis.rank == 0:
+            (s0, r0), (s1, r1), lposes = run_lockstep(cfg, frames, "cpu")
+            out["lockstep"] = dict(stage0=tensor_digest(s0), reg0=tensor_digest(r0),
+                                   stage1=tensor_digest(s1), reg1=tensor_digest(r1),
+                                   poses=lposes.numpy())
+    return out
+
+
+def card_stream_world(axis: MapAxis, cfg, frames_np) -> dict:
+    """A ``2 x 1`` stream world on the card: the frames from ``init``
+    (digests of the final state and register, the poses, the integrate
+    kernel's launches), then one more step under the sync counter and
+    the link's counters."""
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.parallel import StreamBlockPipeline, make_pipe_mesh
+
+    dev = axis.device
+    mesh = make_pipe_mesh(2, 1, dev)
+    pipe = StreamBlockPipeline(cfg, mesh, dev)
+    frames = torch.from_numpy(np.stack(frames_np)).to(dev)
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    st, rg, poses = pipe.run(*pipe.init(), frames)
+    torch.cuda.synchronize()
+    out = dict(stage=mesh.stage, launches=integrate_blocks_cuda.launches,
+               digest=tensor_digest(st), reg_digest=tensor_digest(rg),
+               poses=poses.cpu().numpy())
+    calls, nbytes = mesh.link.calls, mesh.link.bytes
+    _, out["syncs"] = count_syncs(lambda: pipe.step(st, rg, frames[-1]))
+    out["link"] = (mesh.link.calls - calls, mesh.link.bytes - nbytes)
+    return out

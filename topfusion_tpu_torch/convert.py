@@ -20,9 +20,11 @@ from .config import PipelineConfig
 from .models.block_pipeline import BlockState
 from .models.pipeline import DenseState
 from .models.posegraph import PoseGraph
+from .parallel.stream_pipeline import StreamRegister
 from .utils.device_info import entry_device
 
-_TUPLE_FIELDS = ("model_points", "model_normals")
+# Per-level tuples: a state's model maps and a stream register's.
+_TUPLE_FIELDS = ("model_points", "model_normals", "maps_p", "maps_n")
 
 
 def _build(cls, values: Mapping[str, Any]):
@@ -151,6 +153,63 @@ def sharded_block_state_to_numpy(states) -> Dict[str, Any]:
         if _stacked(name, parts[0]):
             out[name] = np.concatenate([np.atleast_1d(p[name]) for p in parts])
     return out
+
+
+def stream_state_from_numpy(state: Mapping[str, Any], reg: Mapping[str, Any], stage: int,
+                            map_rank: int, n_map: int, device="cuda"):
+    """The (``BlockState``, ``StreamRegister``) of the process at ``stage``
+    and map shard ``map_rank`` of a ``2 x n_map`` stream world, on
+    ``device`` (the card by default, a ``RuntimeError`` where there is
+    none), from the global arrays of a JAX ``StreamBlockPipeline``
+    (``state._asdict()``, ``reg._asdict()``): map leaves are ``[2, n_map *
+    local, ...]``, ``num_blocks`` ``[2, n_map]``, ``vis_slots`` ``[2, n_map
+    * V_local]``, the pose, model maps and counters ``[2, ...]``, and every
+    register leaf ``[2, n_map, ...]``."""
+    def pick(v, index):
+        return tuple(np.asarray(x)[index] for x in v) if isinstance(v, tuple) else np.asarray(v)[index]
+
+    row = {name: pick(state[name], stage) for name in BlockState._fields}
+    st = block_state_from_numpy(_local_arrays(row, map_rank, n_map), device)
+    rg = _state_from_numpy(StreamRegister, {name: pick(reg[name], (stage, map_rank))
+                                            for name in StreamRegister._fields}, device)
+    return st, rg
+
+
+def stream_state_to_numpy(parts):
+    """The global (state, register) arrays of a stream world, as a JAX
+    ``StreamBlockPipeline`` holds them, from every process's (state,
+    register) in world-rank order (``2 * n_map`` of them; port objects or
+    their field dicts).  The copies of a stage's unsharded leaves (pose,
+    model maps, counters) must be equal over its row: a ``ValueError``
+    says which differ."""
+    parts = [tuple(p if isinstance(p, Mapping) else _state_to_numpy(p) for p in part)
+             for part in parts]
+    n_map = len(parts) // 2
+    if len(parts) != 2 * n_map or n_map < 1:
+        raise ValueError(f"a stream world has 2 x n_map processes, not {len(parts)}")
+    rows = []
+    for s in range(2):
+        row = [st for st, _ in parts[s * n_map:(s + 1) * n_map]]
+        for name in BlockState._fields:
+            if _stacked(name, row[0]):
+                continue
+            for r, other in enumerate(row[1:], 1):
+                a, b = row[0][name], other[name]
+                if not all(np.array_equal(x, y) for x, y in zip(
+                        *(v if isinstance(v, tuple) else (v,) for v in (a, b)))):
+                    raise ValueError(f"stage {s}: {name} of map shard {r} differs from shard 0's")
+        rows.append(sharded_block_state_to_numpy(row))
+
+    def stack(vals):
+        if isinstance(vals[0], tuple):
+            return tuple(np.stack(level) for level in zip(*vals))
+        return np.stack(vals)
+
+    state = {name: stack([row[name] for row in rows]) for name in BlockState._fields}
+    reg = {name: stack([stack([parts[s * n_map + j][1][name] for j in range(n_map)])
+                        for s in range(2)])
+           for name in StreamRegister._fields}
+    return state, reg
 
 
 def dense_state_from_numpy(arrays: Mapping[str, Any], device="cuda") -> DenseState:

@@ -14,8 +14,9 @@ collectives:
                                    (all_gather into a list, then cat)
 
 and two that a single SPMD program does not need: ``MapAxis.broadcast``
-(member 0's tensor to every member: where the members' host code
-branches on a fetched value, they branch on the same one) and
+(one member's tensor to every member: where the members' host code
+branches on a fetched value, they branch on the same one; over a pair of
+pipeline stages it is the one-way ``lax.ppermute`` of a register) and
 ``MapAxis.all_gather_object`` (picklable host values, e.g. a host
 cache's store entries).
 
@@ -99,12 +100,14 @@ class MapAxis:
         out = torch.cat(parts)
         return out.to(torch.bool) if t.dtype == torch.bool else out
 
-    def broadcast(self, t: torch.Tensor) -> torch.Tensor:
-        """Member 0's ``t`` on every member (a new tensor)."""
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Member ``src``'s ``t`` on every member (a new tensor).  The
+        other members pass a tensor of the same shape and dtype, whose
+        values are not read."""
         self._count(t)
         buf = t.contiguous().clone()
-        src = 0 if self.group is None else dist.get_global_rank(self.group, 0)
-        dist.broadcast(buf, src=src, group=self.group)
+        root = src if self.group is None else dist.get_global_rank(self.group, src)
+        dist.broadcast(buf, src=root, group=self.group)
         return buf
 
     def all_gather_object(self, obj) -> list:
