@@ -60,7 +60,9 @@ def sequences(tmp_path_factory):
     base = tmp_path_factory.mktemp("seq")
     dirs = {"icl": str(base / "icl_synth"), "tum": str(base / "tum_synth")}
     script = os.path.join(ROOT, "scripts", "make_synthetic_dataset.py")
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2")
+    # The script sets a shared JAX compilation cache only where none is set.
+    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="2",
+               JAX_COMPILATION_CACHE_DIR=str(base / "jax_cache"))
     procs = [
         subprocess.Popen([sys.executable, script, "--out", dirs["icl"], "--frames", "12",
                           "--noise", "0", "--format", "icl", "--angle", "4", "--shift", "0.04"],

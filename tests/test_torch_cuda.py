@@ -1059,3 +1059,58 @@ def test_slam_cfg_mirrors_the_jax_test_config():
     from topfusion_tpu_torch.convert import config_from_reference
 
     assert slam_cfg() == config_from_reference(make_cfg())
+
+
+@pytest.mark.cuda
+def test_png16_round_trip_through_native_decoder(tmp_path):
+    """A VGA depth frame rendered on the card, written as a 16-bit PNG by
+    ``io/png.py`` and read back through the repository's native decoder
+    (the dataset path of the app's ``--sequence``)."""
+    from topfusion_tpu_torch.io.datasets import _read_png
+    from topfusion_tpu_torch.io.native_loader import decoder_name
+    from topfusion_tpu_torch.io.png import write_png
+
+    if not torch.cuda.is_available():
+        pytest.skip("renders on the card")
+    cam = CameraConfig()
+    depth = SyntheticScene().render_depth_mm(cam, torch.eye(4, device="cuda")).cpu().numpy()
+    path = str(tmp_path / "d.png")
+    write_png(path, depth)
+    assert decoder_name().startswith("native")
+    got = _read_png(path)
+    assert got.dtype == np.uint16 and got.shape == (480, 640)
+    np.testing.assert_array_equal(got, depth)
+    assert (depth > 0).mean() > 0.3
+
+
+@pytest.mark.cuda
+def test_view_tool_on_the_card(mapped, tmp_path):
+    """``tools/view`` on a run directory of a map fused on the card
+    (config.json, as the app writes it without pyyaml): the key script's
+    final pose is ``move_pose`` over the keys, view.png is not constant."""
+    import contextlib
+    import io
+    import json
+
+    from topfusion_tpu_torch.geometry.viewpath import move_pose
+    from topfusion_tpu_torch.io.datasets import _read_png
+    from topfusion_tpu_torch.tools import view
+    from topfusion_tpu_torch.utils.checkpoint import save_state
+    from topfusion_tpu_torch.utils.config_io import save_config
+
+    pipe, state, _ = mapped[4]
+    run_dir = str(tmp_path)
+    save_config(str(tmp_path / "config.json"), pipe.cfg)
+    save_state(str(tmp_path / "state.npz"), state)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert view.main([run_dir, "--script", "wjsqo", "--step", "0.02"]) == 0
+    lines = buf.getvalue().splitlines()
+    T = state.T_wc.cpu().numpy()
+    for k in "wjs":
+        T = move_pose(T, k, step_m=0.02)
+    final = json.loads(next(ln for ln in lines if ln.startswith("final pose "))[len("final pose "):])
+    np.testing.assert_array_equal(np.asarray(final, np.float32), T)
+    img = _read_png(str(tmp_path / "view.png"))
+    assert img.shape == (64, 80, 3) and img.std() > 0
+    assert sum("coverage" in ln for ln in lines) == 4

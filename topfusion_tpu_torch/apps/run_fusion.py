@@ -19,7 +19,7 @@ CPU) and writes:
 
 The loop is chunked: ``--chunk`` frames per ``process_chunk`` call (about
 a second of frames by default, rounded to the keyframe cadence), one host
-fetch per chunk.  PNGs are written by a small zlib encoder and GIFs by
+fetch per chunk.  PNGs are written by ``io/png.py`` and GIFs by
 ``io/gif.py``, so the app needs no image library.
 
 Usage:
@@ -35,31 +35,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-import struct
 import sys
 import time
-import zlib
 
 import numpy as np
 
-
-def write_png(path: str, img: np.ndarray) -> None:
-    """An 8-bit RGB [H, W, 3] (or grey [H, W]) image as a PNG file."""
-    img = np.ascontiguousarray(img, dtype=np.uint8)
-    h, w = img.shape[:2]
-    color_type = 2 if img.ndim == 3 else 0
-    rows = img.reshape(h, -1)
-    raw = b"".join(b"\x00" + rows[y].tobytes() for y in range(h))
-
-    def chunk(kind: bytes, data: bytes) -> bytes:
-        body = kind + data
-        return struct.pack(">I", len(data)) + body + struct.pack(">I", zlib.crc32(body))
-
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, color_type, 0, 0, 0)))
-        f.write(chunk(b"IDAT", zlib.compress(raw, 6)))
-        f.write(chunk(b"IEND", b""))
+from ..io.png import write_png
 
 
 def _app_config(args):

@@ -7,7 +7,8 @@ package).  The library is the repository's ``native/libtfnative.so``
 with bounded prefetch, keeping host IO off the fusion critical path (the
 native-runtime analogue of the reference's OpenNI capture thread,
 reference: tfusion/src/capture.cpp:205-245).  Falls back transparently to
-imageio when the shared library hasn't been built (``make -C native``).
+imageio when the shared library hasn't been built (``make -C native``);
+a library that exists but does not load raises.
 """
 
 from __future__ import annotations
@@ -24,10 +25,11 @@ _LIB_PATHS = [
 ]
 
 _lib = None
+_lib_path = None
 
 
 def _load_lib():
-    global _lib
+    global _lib, _lib_path
     if _lib is not None:
         return _lib
     for p in _LIB_PATHS:
@@ -62,13 +64,19 @@ def _load_lib():
                 ctypes.POINTER(ctypes.c_uint32),
                 ctypes.POINTER(ctypes.c_uint32),
             ]
-            _lib = lib
+            _lib, _lib_path = lib, p
             return lib
     return None
 
 
 def native_available() -> bool:
     return _load_lib() is not None
+
+
+def decoder_name() -> str:
+    """Which PNG decoder ``io/datasets._read_png`` uses: the native
+    library (its path), else imageio."""
+    return f"native ({_lib_path})" if native_available() else "imageio"
 
 
 def decode_png_native(path: str) -> Optional[np.ndarray]:

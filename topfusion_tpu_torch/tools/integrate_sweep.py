@@ -41,6 +41,7 @@ from ..ops.cuda.build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, find_nvcc
 from ..ops.depth import depth_to_meters
 from ..ops.tsdf_block import allocate_from_depth, integrate_blocks, visible_blocks
 from ..utils.device_info import nvidia_smi_name_power
+from .bench_config import bench_config, with_plain_integrate
 
 REPEATS = 30
 KERNEL = "integrate_columns_kernel"
@@ -120,7 +121,7 @@ def sass_counts(so: Path) -> str:
 
 
 def main() -> int:
-    import chip_smoke as cs  # the bench configuration and the timers live there
+    import chip_smoke as cs  # the timers live there
 
     from ..io.synthetic import orbit_trajectory
     from ..models.block_pipeline import BlockPipeline
@@ -142,9 +143,9 @@ def main() -> int:
             print(sass_counts(so))
 
     poses = orbit_trajectory(cs.FRAMES, max_angle_deg=3.0, max_shift=0.03, seed=1)
-    frames = cs.render_frames(cs.bench_config(), poses, device)
+    frames = cs.render_frames(bench_config(), poses, device)
     for dtype in dtypes:
-        cfg = cs.with_plain_integrate(cs.bench_config(dtype))
+        cfg = with_plain_integrate(bench_config(dtype))
         pipe = BlockPipeline(cfg, device)
         state, _, _ = cs.run(pipe, pipe.init(), frames[:3])
         cam, tc, bm = cfg.camera, cfg.tsdf, cfg.blockmap
