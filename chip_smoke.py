@@ -71,9 +71,9 @@ Phases, each of which must pass (else the exit code is 1):
      through ``SlamSystem.process_chunk`` in chunks of 30: every frame
      tracked, no reset, no block dropped, a loop closed, optimized ATE <
      12 mm and <= 1.5 x the odometry's + 1 mm, one column-kernel launch
-     per frame and per re-fused frame, at most n + 2 host syncs for a chunk
-     of n frames without a closure; (b) the same frames with every
-     correction rebuilding the map from the keyframes and a 32-frame ring,
+     per frame and per re-fused frame, at most 2 host syncs (the loop
+     verification's eigvalsh, the fetch) for a chunk without a closure;
+     (b) the same frames with every correction rebuilding the map from the keyframes and a 32-frame ring,
      twice: a rebuild, launches = frames + the frames the rebuilds re-fuse,
      both runs' graphs and poses bit-identical, the rebuilt map raycast
      from the corrected pose within a median 3 voxels of the scene, 3
@@ -85,7 +85,7 @@ Phases, each of which must pass (else the exit code is 1):
      full-size images of the map, some of it covered;
  13. ICP one-hot: the orbit of phase 4 with ``icp.gather_mode="onehot"``
      (the band gather, ``ops/gather_mm.py``): every frame tracked, no reset,
-     ATE < 12 mm, one column-kernel launch per frame, one host sync per
+     ATE < 12 mm, one column-kernel launch per frame, no host sync in a
      step; the correspondences the band drops in one level-0 association
      (flat count minus onehot count), the largest pose difference from
      phase 4's flat run, ms per frame, device operations and device time
@@ -127,8 +127,8 @@ Phases, each of which must pass (else the exit code is 1):
      (a) a world of one NCCL process over phase 12 (a)'s frames in its
      chunks: trajectory, optimized trajectory, graph, map and counters
      bit-identical to phase 12 (a)'s ``SlamSystem``, one column-kernel
-     launch per frame and per re-fused frame, at most n + 3 host syncs
-     per chunk of n frames without a closure, every solve
+     launch per frame and per re-fused frame, at most 3 host syncs
+     per chunk without a closure, every solve
      gn_iters x (cg_iters + 3) collectives of the bytes computed, the
      kernel bit-equal to plain on the shard's pool; ms, collectives and
      bytes per chunk, the solve's ms;
@@ -192,11 +192,34 @@ Phases, each of which must pass (else the exit code is 1):
      the fast run's map; (e) ``profile_stages`` at the bench
      configuration: its table, launches as its calls imply, every stage
      on the device, the kernel bit-equal to plain on the stages' map.
+ 19. the captured step (``models/captured.CapturedStep``: the step as one
+     CUDA graph, replayed per frame) and ``tools/bench`` at the bench
+     configuration: (a) the orbit from a fresh map replayed and stepped
+     eagerly, bit-identical in the trajectory, every state field (hash
+     keys and slots, the int16 pool, the model maps) and every aux field,
+     one column-kernel launch counted per replay; (b) a chunk of replays
+     under sync debug mode "error", and no host sync in the next; (c) one
+     profiled replay beside phase 5's eager step (device operations and
+     time), the column kernel in it once and the counters agreeing, the
+     bytes and time of the state copied back into the graph's buffers;
+     (d) ``tools/bench``'s orbit, sweep and sharded world-of-1 (NCCL,
+     captured, in a fresh process as ``--scenario sharded`` runs) scenarios
+     and its agreement gate ("pass"), their JSON lines, then frames/s, ms
+     per frame, device time and busy share, peak and reserved memory per
+     scenario, launches as the code implies, every frame tracked; (e) the
+     sweep drops no block, and the kernel is bit-equal to plain on its
+     final map; (f) in the sharded scenario's process, the sharded orbit
+     captured and stepped eagerly from one fresh state, bit-identical in
+     the trajectory, every state field and every aux field, collectives
+     counted per replay, that runner timed and a chunk of it profiled, the
+     kernel bit-equal to plain on its map.
 
 The kernel's launch count is set to 0 before each of the stepping paths
 (4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13, 14 and, in each
 shard's process, 15 (a), (b) and the capped sweep of (c), 16 (a) and (b),
-17 (a) and (b); 18 (b), (d) and (e)) and read after it;
+17 (a) and (b); 18 (b), (d) and (e); 19 (a), each scenario of (d) and (f))
+and read after it.  A replayed graph launches the kernel without calling
+its wrapper: the runner adds the launches it captured on every replay;
 the dense path launches no hand-written kernel (its integrate is XLA in
 the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
@@ -1394,7 +1417,7 @@ def slam_phase(device) -> tuple:
         size = min(SLAM_CHUNK, n - k * SLAM_CHUNK)
         loop = any(i["loop"] for i in a["infos"][k * SLAM_CHUNK:(k + 1) * SLAM_CHUNK])
         if not loop:  # a closure adds the solve's fetch
-            check(syncs <= size + 2, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
+            check(syncs <= 2, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
     # What phase 16 (a) holds the sharded system to.
     slam_a = dict(gt=gt, frames=frames.cpu().numpy(), **slam_digest(a["slam"]),
                   launches=a["launches"], refused=list(a["refused"]), chunk_ms=a["chunk_ms"])
@@ -1636,7 +1659,7 @@ def onehot_phase(frames, poses, flat_est, flat_profile, device) -> int:
     check(audit["associations"] == len(frames) * (sum(icp.iters) - icp.bilinear_polish_iters),
           f"ICP one-hot: {audit['associations']} nearest associations audited")
     check(audit["more than flat"] == 0, "ICP one-hot: the band admitted what flat rejects")
-    check(syncs == 1 and bool(aux.ok), f"ICP one-hot: a step synced the host {syncs} times")
+    check(syncs == 0 and bool(aux.ok), f"ICP one-hot: a step synced the host {syncs} times")
     return launches
 
 
@@ -2285,7 +2308,7 @@ def sharded_slam_phase(poses, frames, slam_a, dense_full) -> dict:
     for j, syncs in enumerate(a["syncs"]):
         size = min(SLAM_CHUNK, n - j * SLAM_CHUNK)
         if not any(i["loop"] for i in a["infos"][j * SLAM_CHUNK:(j + 1) * SLAM_CHUNK]):
-            check(syncs <= size + 3, f"16 (a): chunk {j} of {size} frames synced {syncs} times")
+            check(syncs <= 3, f"16 (a): chunk {j} of {size} frames synced {syncs} times")
     check(all(sv == (solve_calls, solve_bytes) for sv in a["solves"]) and a["solves"],
           f"16 (a): solves issued {a['solves']}, not {solve_calls} calls of {solve_bytes} B")
     check(a["kernel"]["equal"], "16 (a): kernel and plain differ on the local pool")
@@ -2813,6 +2836,302 @@ def tools_phase(device) -> dict:
     return launches
 
 
+CAPTURED_COPY_REPEATS = 5  # timed state copies and timed replays (19 (c))
+
+
+def state_bytes(state) -> int:
+    """Bytes of every tensor of a state (model maps by level)."""
+    return sum(t.numel() * t.element_size()
+               for v in state for t in (v if isinstance(v, tuple) else (v,)))
+
+
+def differing(e_poses, e_aux, eager, c_poses, c_aux, captured) -> tuple:
+    """(trajectory bit-identical, state fields that differ, aux fields
+    that differ) of a captured run against the eager one, the captured
+    aux one [1]-stacked chunk per frame."""
+    import torch
+
+    same_poses = all(torch.equal(a, b) for a, b in zip(e_poses, c_poses))
+    de, dc = state_digest(eager), state_digest(captured)
+    fields = sorted(k for k in de if de[k] != dc[k])
+    aux_fields = [f for f in type(e_aux[0])._fields
+                  if not torch.equal(torch.stack([getattr(a, f) for a in e_aux]),
+                                     torch.cat([getattr(a, f) for a in c_aux]))]
+    return same_poses, fields, aux_fields
+
+
+def replay_each(runner, frames) -> tuple:
+    """Each frame through ``runner`` as a chunk of its own: ([T_wc after
+    each], [aux of each])."""
+    poses, auxes = [], []
+    for i in range(len(frames)):
+        auxes.append(runner.run(frames[i:i + 1]))
+        poses.append(runner.state().T_wc)
+    return poses, auxes
+
+
+def captured_sharded_body(axis) -> dict:
+    """Phase 19 (d)'s sharded scenario and (f), in a fresh NCCL process of
+    its own, as ``python3 -m topfusion_tpu_torch.tools.bench --scenario
+    sharded`` runs it: first the bench scenario, its launches counted;
+    then the sharded orbit stepped eagerly and captured from the same
+    fresh state, compared field by field; that runner timed by the
+    bench's protocol and one chunk of its replays profiled; the kernel
+    against its plain version on the captured map."""
+    import torch
+
+    from topfusion_tpu_torch.models.captured import CapturedStep
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.parallel.block_sharded import ShardedBlockPipeline
+    from topfusion_tpu_torch.tools import bench
+    from topfusion_tpu_torch.tools.timing import profiled as profiled_padded
+
+    dev = axis.device
+    cfg = bench_config("int16")
+    torch.cuda.synchronize()
+    integrate_blocks_cuda.launches = 0
+    t0 = time.perf_counter()
+    detail = {}
+    result = bench.bench_sharded_orbit(cfg, dev, detail=detail, axis=axis)
+    torch.cuda.synchronize()
+    out = dict(result=result, launches=integrate_blocks_cuda.launches,
+               seconds=time.perf_counter() - t0, ms_per_frame=detail["ms_per_frame"],
+               peak_mib=detail["peak_mib"], reserved_mib=detail["reserved_mib"],
+               frames=detail["frames"],
+               frames_ok=int(sum(int(a.ok.sum()) for a in detail["auxes"])),
+               backend=detail["backend"])
+    del detail
+    torch.cuda.empty_cache()
+
+    pipe = ShardedBlockPipeline(cfg, axis, dev)
+    frames = bench.orbit_frames(cfg, dev)
+    eager, e_poses, e_aux = run(pipe, pipe.init(), frames)
+    runner = CapturedStep(pipe, pipe.init())
+    integrate_blocks_cuda.launches = 0
+    c_poses, c_aux = replay_each(runner, frames)
+    captured = runner.state()
+    torch.cuda.synchronize()
+    out["captured_launches"] = integrate_blocks_cuda.launches
+    out["same_poses"], out["fields"], out["aux_fields"] = differing(
+        e_poses, e_aux, eager, c_poses, c_aux, captured)
+    out["per_replay"] = dict(runner.per_replay)
+    out["kernel"] = kernel_on_local_pool(captured, pipe.local_cfg, frames[-1])
+    del eager, captured
+
+    # The bench's protocol on this runner: a warm-up chunk, the timed ones.
+    runner.run(frames)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(bench.PASSES):
+        runner.run(frames)
+    torch.cuda.synchronize()
+    out["runner_ms_per_frame"] = (time.perf_counter() - t0) * 1000 / (bench.PASSES * len(frames))
+    ops, device_ms, _, pads, names = profiled_padded(lambda: runner.run(frames))
+    out.update(device_ops_per_frame=ops / len(frames), device_ms_per_frame=device_ms / len(frames),
+               kernel_events=sum(c for k, c in names.items() if "integrate_columns_kernel" in k),
+               pads=pads)
+    return out
+
+
+def captured_phase(frames, flat_profile, seq_ms, smi, device) -> dict:
+    """Phase 19.  ``flat_profile``: phase 5's (device operations, device
+    ms) per eager frame; ``seq_ms``: phase 5's eager ms per frame.  Returns
+    the kernel launches of the captured runs."""
+    import torch
+
+    from topfusion_tpu_torch.io.synthetic import corridor_scene, sweep_trajectory
+    from topfusion_tpu_torch.models.block_pipeline import BlockPipeline
+    from topfusion_tpu_torch.models.captured import WARMUP_STEPS, CapturedStep
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+    from topfusion_tpu_torch.parallel import spawn_world
+    from topfusion_tpu_torch.tools import bench
+    from topfusion_tpu_torch.tools.timing import PAD, profiled as profiled_padded
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        integrate_blocks_cuda.launches = 0
+        integrate_blocks_cuda.vector_launches = 0
+
+    def counts():
+        torch.cuda.synchronize()
+        return integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches
+
+    launches = {}
+    cfg = bench_config("int16")
+    pipe = BlockPipeline(cfg, device)
+    fr = torch.stack(frames)
+    n = len(frames)
+    count_name = "integrate_blocks_cuda.launches"
+
+    # (a) The captured step against the eager step from a fresh map.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager, e_poses, e_aux = run(pipe, pipe.init(), frames)
+    torch.cuda.synchronize()
+    eager_peak = torch.cuda.max_memory_allocated() / 2**20
+    t0 = time.perf_counter()
+    runner = CapturedStep(pipe, pipe.init())
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    zero_counts()
+    c_poses, c_aux = replay_each(runner, fr)
+    launches["captured_orbit"], vec = counts()
+    captured = runner.state()
+    same_poses, fields, aux_fields = differing(e_poses, e_aux, eager, c_poses, c_aux, captured)
+    print(f"19 (a), CapturedStep over the {n}-frame orbit from a fresh map (warm-up and capture "
+          f"{capture_s:.2f} s): against the eager step, trajectory bit-identical {same_poses}, "
+          f"state fields that differ: {fields or 'none'}, aux fields that differ: "
+          f"{aux_fields or 'none'}; kernel launches {launches['captured_orbit']} ({vec} of the "
+          f"column kernel; {runner.per_replay[count_name]} captured per replay); peak memory of "
+          f"the eager pass {eager_peak:.1f} MiB")
+    check(same_poses and not fields and not aux_fields, "19 (a): captured and eager steps differ")
+    check(launches["captured_orbit"] == vec == n, "19 (a): launches")
+    del eager, captured
+
+    # (b) No host sync in a chunk of replays.
+    runner.load(pipe.init())
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        aux = runner.run(fr)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _, syncs = count_syncs(lambda: runner.run(fr))
+    print(f"19 (b): a chunk of {n} replays under sync debug mode \"error\" raised nothing; "
+          f"host syncs in the next chunk {syncs}; every frame tracked {bool(aux.ok.all())}")
+    check(syncs == 0 and bool(aux.ok.all()), "19 (b): host syncs or a lost frame")
+
+    # (c) One profiled replay, a replay's device span, the state copy.
+    zero_counts()
+    ops, device_ms, _, pads, names = profiled_padded(lambda: runner.run(fr[:1]))
+    replay_launches, _ = counts()
+    kernel_events = sum(c for name, c in names.items() if "integrate_columns_kernel" in name)
+    snap = runner.state()
+    copy_bytes = state_bytes(snap)
+    copy = time_calls(lambda: runner.load(snap), CAPTURED_COPY_REPEATS)
+    del snap
+    zero_counts()
+    replays = []
+
+    def one_replay():
+        replays.append(1)
+        runner.replay()
+
+    replay = time_calls(one_replay, CAPTURED_COPY_REPEATS)
+    replay_count, _ = counts()
+    flat_ops, flat_device_ms = flat_profile
+    print(f"19 (c), one profiled replay: {ops} device operations, {device_ms:.3f} ms device time "
+          f"(the eager step, phase 5: {flat_ops:.1f} and {fmt_ms(flat_device_ms)} per frame); the "
+          f"column kernel {kernel_events} time(s), the counter {replay_launches} (per replay "
+          f"{runner.per_replay}); pads kept {pads} of {2 * PAD}")
+    print(f"  one replay between CUDA events (median of {CAPTURED_COPY_REPEATS}, L2 flushed): "
+          f"{replay['device_ms']:.3f} ms on a busy device, {replay['wall_ms']:.3f} ms from an "
+          f"idle one; the state copied back each step, {copy_bytes} B (load() of the "
+          f"same tensors, L2 flushed): {copy['device_ms']:.4f} ms on the "
+          f"device, {copy['wall_ms']:.4f} ms with the host's launches")
+    check(kernel_events == replay_launches == runner.per_replay[count_name] == 1,
+          "19 (c): the profiled replay's kernel launches and the counters disagree")
+    check(replay_count == len(replays), f"19 (c): {replay_count} launches counted by "
+          f"{len(replays)} replays")
+
+    # The sweep's first chunk from a fresh map, profiled (its device time
+    # per frame for (d)), and its last frame, for (e).
+    sweep_poses = sweep_trajectory(bench.SWEEP_FRAMES)
+    sweep_fr = bench.render(cfg, corridor_scene(), sweep_poses[:bench.CHUNK] + sweep_poses[-1:],
+                            device)
+    runner.load(pipe.init())
+    sweep_ops, sweep_device_ms, _, _, _ = profiled_padded(lambda: runner.run(sweep_fr[:-1]))
+    profiles = {"orbit": (ops, device_ms),
+                "sweep": (sweep_ops / bench.CHUNK, sweep_device_ms / bench.CHUNK)}
+    del runner
+    torch.cuda.empty_cache()
+
+    # (d) tools.bench's three scenarios and the agreement gate: the orbit
+    # and the sweep here, the sharded world of 1 in a fresh process with
+    # (f); (e) the sweep.
+    out, details = {}, {}
+
+    def report(name, res, detail, seconds, device_ops, device_ms_frame):
+        out[name] = res
+        details[name] = dict(
+            frames_per_s=res["value"], ms_per_frame=round(detail["ms_per_frame"], 3),
+            device_ms_per_frame=round(device_ms_frame, 3), device_ops_per_frame=device_ops,
+            busy_share=round(device_ms_frame / detail["ms_per_frame"], 4),
+            peak_mib=round(detail["peak_mib"], 1), reserved_mib=round(detail["reserved_mib"], 1),
+            frames_ok=detail["frames_ok"], frames=detail["frames"],
+            launches=launches[f"bench_{name}"], seconds=round(seconds, 1))
+
+    sweep_state = None
+    for name, fn in (("orbit", bench.bench_orbit), ("sweep", bench.bench_sweep)):
+        detail = {}
+        zero_counts()
+        t0 = time.perf_counter()
+        res = fn(cfg, device, detail=detail)
+        seconds = time.perf_counter() - t0
+        launches[f"bench_{name}"], _ = counts()
+        detail["frames_ok"] = int(sum(int(a.ok.sum()) for a in detail["auxes"]))
+        report(name, res, detail, seconds, *profiles[name])
+        if name == "sweep":
+            details[name].update(blocks_dropped=detail["blocks_dropped"],
+                                 num_blocks=detail["num_blocks"])
+            sweep_state = detail["state"]
+        del detail
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    (sh,) = spawn_world(captured_sharded_body, 1, "nccl", "cuda", timeout_s=600)
+    sh_seconds = time.perf_counter() - t0
+    launches["bench_sharded"] = sh["launches"]
+    launches["captured_sharded_orbit"] = sh["captured_launches"]
+    report("sharded", sh["result"], sh, sh_seconds, sh["device_ops_per_frame"],
+           sh["device_ms_per_frame"])
+    t0 = time.perf_counter()
+    gate = bench.run_agreement_gate()
+    gate_s = time.perf_counter() - t0
+    line = dict(out["orbit"], pallas_agreement=gate, sharded_mesh1_fps=out["sharded"]["value"],
+                sharded_vs_unsharded=round(out["sharded"]["value"] / max(out["orbit"]["value"], 1e-9), 3))
+    print(f"19 (d), python3 -m topfusion_tpu_torch.tools.bench (orbit with extras): {json.dumps(line)}")
+    print(f"  --scenario sweep: {json.dumps(out['sweep'])}")
+    print(f"  --scenario sharded (a fresh process, {sh['backend']}): {json.dumps(out['sharded'])}")
+    print(f"  per scenario on {smi.splitlines()[0]} (the eager step, phase 5: {seq_ms:.2f} ms/frame; "
+          f"device time per frame: the orbit's one replay of (c), the sweep's first chunk from a "
+          f"fresh map, the sharded runner's chunk of (f)): {json.dumps(details)}; agreement gate in "
+          f"{gate_s:.1f} s")
+    check(gate == "pass", f"19 (d): the agreement gate gave {gate}")
+    for name, d in details.items():
+        # eager bootstrap steps, the runner's warm-up, the warm-up chunk,
+        # the timed frames
+        want = (1 if name == "sweep" else 2) + WARMUP_STEPS + bench.CHUNK + d["frames"]
+        check(d["launches"] == want, f"19 (d): {name}: {d['launches']} launches, the code implies {want}")
+        check(d["frames_ok"] == d["frames"], f"19 (d): {name} lost a frame")
+
+    zero_counts()
+    ke = kernel_on_local_pool(sweep_state, cfg, sweep_fr[-1])
+    print(f"19 (e): the sweep dropped {details['sweep']['blocks_dropped']} blocks of "
+          f"{details['sweep']['num_blocks']}; kernel vs plain on its final map "
+          f"({ke['visible']} visible blocks): {'bit-equal' if ke['equal'] else 'DIFFERENT'}")
+    check(details["sweep"]["blocks_dropped"] == 0,
+          f"19 (e): the sweep dropped {details['sweep']['blocks_dropped']} blocks")
+    check(ke["equal"], "19 (e): kernel and plain differ on the sweep's map")
+    del sweep_state
+
+    ks = sh["kernel"]
+    print(f"19 (f), the sharded orbit in that process, captured against eager from a fresh state: "
+          f"trajectory bit-identical {sh['same_poses']}, state fields that differ: "
+          f"{sh['fields'] or 'none'}, aux fields that differ: {sh['aux_fields'] or 'none'}; "
+          f"launches {sh['captured_launches']}, per replay {sh['per_replay']}; that runner by the "
+          f"bench's protocol {sh['runner_ms_per_frame']:.3f} ms/frame; a profiled chunk "
+          f"{sh['device_ops_per_frame']:.1f} device operations and {sh['device_ms_per_frame']:.3f} "
+          f"ms per frame, the column kernel {sh['kernel_events']} time(s) (pads kept {sh['pads']} "
+          f"of {2 * PAD}); kernel vs plain on its map: {'bit-equal' if ks['equal'] else 'DIFFERENT'}")
+    check(sh["same_poses"] and not sh["fields"] and not sh["aux_fields"],
+          "19 (f): captured and eager sharded steps differ")
+    check(sh["captured_launches"] == n and sh["kernel_events"] == n,
+          "19 (f): the sharded replays' launches")
+    check(sh["per_replay"].get("MapAxis.calls", 0) > 0, "19 (f): no collective counted per replay")
+    check(ks["equal"], "19 (f): kernel and plain differ on the sharded map")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -2894,6 +3213,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update(tools_phase(device))
         took("phase 18, tools")
+        torch.cuda.empty_cache()
+        launches.update(captured_phase(frames, flat_profile, seq_ms, smi, device))
+        took("phase 19, captured step and tools/bench")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -314,8 +314,9 @@ def test_empty_visible_set_launches_nothing(mapped):
 
 @pytest.mark.cuda
 def test_step_syncs_the_host_once(mapped):
-    """A pipeline step (kernel path) issues one synchronizing operation,
-    ICP's eigvalsh, as far as PyTorch's sync debug mode detects."""
+    """A pipeline step (kernel path) issues no synchronizing operation, as
+    far as PyTorch's sync debug mode detects: ICP returns its Gram matrix
+    and no longer takes its eigenvalues."""
     _, _, _, _, (pipe, state, frame) = mapped
     pipe = BlockPipeline(dataclasses.replace(pipe.cfg, blockmap=dataclasses.replace(
         pipe.cfg.blockmap, use_pallas_integrate=None)), pipe.device)
@@ -329,7 +330,7 @@ def test_step_syncs_the_host_once(mapped):
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message) for w in rec
              if str(w.message).startswith("called a synchronizing")]
-    assert len(syncs) == 1, syncs
+    assert len(syncs) == 0, syncs
 
 
 @pytest.mark.cuda
@@ -340,7 +341,7 @@ def test_onehot_step_syncs_the_host_once(mapped):
     pipe = BlockPipeline(dataclasses.replace(pipe.cfg, icp=dataclasses.replace(
         pipe.cfg.icp, gather_mode="onehot")), pipe.device)
     (_, aux), syncs = count_syncs(lambda: pipe.step(state, frame))
-    assert len(syncs) == 1, syncs
+    assert len(syncs) == 0, syncs
     assert bool(aux.ok)
 
 
@@ -426,7 +427,7 @@ def test_extract_pointcloud_makes_no_host_sync(colored):
 
 @pytest.mark.cuda
 def test_step_rgb_syncs_the_host_once(colored):
-    """Color fusion adds no sync to the step's one (ICP's eigvalsh)."""
+    """Color fusion adds no sync: the step makes none."""
     pipe, state, depth, rgb = colored
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as rec:
@@ -438,7 +439,7 @@ def test_step_rgb_syncs_the_host_once(colored):
             torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message) for w in rec
              if str(w.message).startswith("called a synchronizing")]
-    assert len(syncs) == 1, syncs
+    assert len(syncs) == 0, syncs
     assert bool(aux.ok) and int((new.color != state.color).sum()) > 1000
 
 
@@ -522,12 +523,12 @@ def dense():
 @pytest.mark.parametrize("guided", [True, False], ids=["guided", "full"])
 def test_dense_step_syncs_the_host_once(dense, guided):
     """A dense step, color fusion and either raycast branch included,
-    issues one synchronizing operation: ICP's eigvalsh."""
+    issues no synchronizing operation."""
     pipe, state, depth, rgb = dense
     pipe = DensePipeline(dataclasses.replace(pipe.cfg, raycast=dataclasses.replace(
         pipe.cfg.raycast, guided=guided)), pipe.device)
     (new, aux), syncs = count_syncs(lambda: pipe.step_rgb(state, depth, rgb))
-    assert len(syncs) == 1, syncs
+    assert len(syncs) == 0, syncs
     assert bool(aux.ok) and int((new.weight != state.weight).sum()) > 1000
     assert int((new.color != state.color).sum()) > 1000
 
@@ -701,9 +702,9 @@ def slam_frames(cfg, n, device):
 
 @pytest.mark.cuda
 def test_slam_chunk_syncs_at_most_n_plus_2():
-    """A chunk of n frames (on the card already) syncs the host at most
-    n + 2 times: ICP's eigvalsh per frame, the batched loop verification's
-    eigvalsh, the one fetch."""
+    """A chunk of frames (on the card already) syncs the host at most
+    twice, whatever its length: the batched loop verification's eigvalsh
+    and the one fetch (the steps make none)."""
     from topfusion_tpu_torch.models.slam import SlamSystem
 
     if not torch.cuda.is_available():
@@ -718,7 +719,7 @@ def test_slam_chunk_syncs_at_most_n_plus_2():
         assert all(i["ok"] for i in infos)
         if not any(i["loop"] for i in infos):   # a closure adds the solve's fetch
             counts.append(len(syncs))
-            assert len(syncs) <= ke + 2, syncs
+            assert len(syncs) <= 2, syncs
     assert counts and slam.loops_closed >= 1
 
 
@@ -871,8 +872,8 @@ def test_sharded_world_of_one_is_block_pipeline_on_the_card():
     """A world of one NCCL shard on the card steps exactly as
     ``BlockPipeline`` with the integrate kernel (state, model maps and aux
     bit-identical over 4 frames, one kernel launch a frame for each), and
-    a warm sharded step syncs the host once, as the single-device step
-    does (ICP's eigvalsh): the NCCL collectives add no sync."""
+    a warm sharded step makes no host sync, as the single-device step:
+    the NCCL collectives add none."""
     if not torch.cuda.is_available():
         pytest.skip("the sharded card path runs on an NVIDIA GPU")
     from torch_sharded_world import card_world_of_one
@@ -883,7 +884,7 @@ def test_sharded_world_of_one_is_block_pipeline_on_the_card():
     (out,) = spawn_world(card_world_of_one, 1, "nccl", "cuda", args=(cfg, 4), timeout_s=300)
     assert out["same"] == [True] * 4
     assert out["launches"] == 8
-    assert out["ok"] and len(out["syncs"]) == 1, out["syncs"]
+    assert out["ok"] and len(out["syncs"]) == 0, out["syncs"]
 
 
 @pytest.mark.cuda
@@ -957,7 +958,7 @@ def test_sharded_slam_world_of_one_is_slam_system_at_vga():
     """Six VGA frames of the app's operating point in chunks of 3 through
     a ``ShardedSlamSystem`` on a world of one NCCL shard and through
     ``SlamSystem``: odometry, graph and map bit-identical; a chunk syncs
-    the host at most n + 3 times (SlamSystem's n + 2, and no more: the
+    the host at most 3 times (SlamSystem's 2, and no more: the
     decisions' broadcast adds none)."""
     if not torch.cuda.is_available():
         pytest.skip("the sharded card path runs on an NVIDIA GPU")
@@ -978,7 +979,7 @@ def test_sharded_slam_world_of_one_is_slam_system_at_vga():
     (out,) = spawn_world(card_slam_world_of_one, 1, "nccl", "cuda", args=(cfg, frames, 3),
                          timeout_s=600)
     assert out["odom"] and out["graph"] and out["state"] and out["ok"]
-    assert all(s <= 3 + 3 for s in out["syncs"]), out["syncs"]
+    assert all(s <= 3 for s in out["syncs"]), out["syncs"]
 
 
 # ----------------------------------------------------------- the stream pipeline
@@ -1026,12 +1027,12 @@ def test_stream_world_is_the_lockstep_on_the_card(stream_card):
 @pytest.mark.cuda
 def test_stream_step_syncs_per_stage(stream_card):
     """Host syncs of a warm stream step under gloo, as PyTorch's sync
-    debug mode detects them in the calling thread: stage 0 syncs once, in
-    ICP's eigvalsh, stage 1 never.  gloo stages the card's tensors
+    debug mode detects them in the calling thread: neither stage syncs
+    (stage 0's ICP no longer takes eigenvalues).  gloo stages the card's tensors
     through the host in its own worker threads, where the debug mode
     only prints a warning to stderr."""
     s0, s1 = stream_card["ranks"]
-    assert len(s0["syncs"]) == 1, s0["syncs"]
+    assert len(s0["syncs"]) == 0, s0["syncs"]
     assert len(s1["syncs"]) == 0, s1["syncs"]
 
 
@@ -1114,3 +1115,117 @@ def test_view_tool_on_the_card(mapped, tmp_path):
     img = _read_png(str(tmp_path / "view.png"))
     assert img.shape == (64, 80, 3) and img.std() > 0
     assert sum("coverage" in ln for ln in lines) == 4
+
+
+# ----------------------------------------------------------- the captured step
+def captured_inputs(mapped):
+    """The kernel-path pipeline at the small config, the state after 3
+    frames of the orbit, and 4 frames on from there."""
+    _, _, _, _, (pipe, state, _) = mapped
+    pipe = BlockPipeline(dataclasses.replace(pipe.cfg, blockmap=dataclasses.replace(
+        pipe.cfg.blockmap, use_pallas_integrate=None)), pipe.device)
+    scene = SyntheticScene()
+    poses = orbit_trajectory(7, max_angle_deg=4.0, max_shift=0.04, seed=3)[3:]
+    frames = torch.stack([scene.render_depth_mm(pipe.cfg.camera, torch.as_tensor(T, device="cuda"))
+                          for T in poses])
+    return pipe, state, frames
+
+
+@pytest.mark.cuda
+def test_captured_step_replays_the_eager_step(mapped):
+    """``CapturedStep`` replays the step, integrate kernel included, to the
+    bit: every state field and every aux field equal to the eager steps'
+    over 4 frames; one kernel launch counted per replay, and none for the
+    capture, which launches nothing (the warm-up steps launch theirs)."""
+    from topfusion_tpu_torch.models.captured import WARMUP_STEPS, CapturedStep
+
+    pipe, state, frames = captured_inputs(mapped)
+    built = integrate_blocks_cuda.launches
+    runner = CapturedStep(pipe, state)
+    assert integrate_blocks_cuda.launches - built == WARMUP_STEPS
+    assert runner.graph is not None and runner.per_replay["integrate_blocks_cuda.launches"] == 1
+    eager, auxes = state, []
+    for f in frames:
+        eager, aux = pipe.step(eager, f)
+        auxes.append(aux)
+    before = (integrate_blocks_cuda.launches, integrate_blocks_cuda.vector_launches)
+    got = runner.run(frames)
+    torch.cuda.synchronize()
+    assert (integrate_blocks_cuda.launches - before[0],
+            integrate_blocks_cuda.vector_launches - before[1]) == (4, 4)
+    replayed = runner.state()
+    for name, a in eager._asdict().items():
+        b = getattr(replayed, name)
+        if isinstance(a, tuple):
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), name
+        else:
+            assert torch.equal(a, b), name
+    for name in got._fields:
+        assert torch.equal(torch.stack([getattr(a, name) for a in auxes]), getattr(got, name)), name
+    assert bool(got.ok.all())
+
+
+@pytest.mark.cuda
+def test_captured_chunk_makes_no_host_sync(mapped):
+    """A chunk of replays runs under sync debug mode "error": the frame
+    copies, the replays and the aux copies never wait for the card."""
+    from topfusion_tpu_torch.models.captured import CapturedStep
+
+    pipe, state, frames = captured_inputs(mapped)
+    runner = CapturedStep(pipe, state)
+    aux = forbid_syncs(lambda: runner.run(frames))
+    _, syncs = count_syncs(lambda: runner.run(frames))
+    assert syncs == [] and bool(aux.ok.all())
+
+
+@pytest.mark.cuda
+def test_capture_of_a_syncing_step_raises(mapped):
+    """A step that reads a value back cannot be captured: the runner
+    raises, it does not run the step eagerly instead."""
+    from topfusion_tpu_torch.models.captured import CapturedStep
+
+    pipe, state, _ = captured_inputs(mapped)
+
+    class Syncing:
+        cfg = pipe.cfg
+
+        def step(self, s, depth_mm):
+            s, aux = pipe.step(s, depth_mm)
+            return s._replace(frame=s.frame + int(aux.num_blocks > 0)), aux
+
+    with pytest.raises(RuntimeError):
+        CapturedStep(Syncing(), state)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_bench_scenarios_on_the_card(mapped):
+    """``tools/bench``'s three scenarios at the small config capture the
+    step (the sharded one with its NCCL collectives on a world of one),
+    track every frame, and the sweep drops no block.  The integrate
+    kernel's count is one per step that ran: the eager bootstrap steps,
+    the runner's warm-up steps, the warm-up chunk's and the timed replays
+    (the capture counts none)."""
+    from topfusion_tpu_torch.models.captured import WARMUP_STEPS
+    from topfusion_tpu_torch.tools import bench
+
+    pipe, _, _ = captured_inputs(mapped)
+    cfg = pipe.cfg
+    for name, fn, kw, bootstrap in (("orbit", bench.bench_orbit, dict(passes=1), 2),
+                                    ("sweep", bench.bench_sweep, dict(n_frames=16), 1),
+                                    ("sharded", bench.bench_sharded_orbit, dict(passes=1), 2)):
+        detail = {}
+        torch.cuda.synchronize()
+        integrate_blocks_cuda.launches = 0
+        res = fn(cfg, "cuda", detail=detail, **kw)
+        torch.cuda.synchronize()
+        assert res["value"] > 0, name
+        assert bool(torch.cat([a.ok for a in detail["auxes"]]).all()), name
+        assert integrate_blocks_cuda.launches == (
+            bootstrap + WARMUP_STEPS + bench.CHUNK + detail["frames"]), name
+        if name == "sweep":
+            assert detail["blocks_dropped"] == 0
+        if name == "sharded":
+            assert detail["backend"] == "nccl"
+        del detail
+        torch.cuda.empty_cache()

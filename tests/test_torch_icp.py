@@ -145,5 +145,5 @@ def test_icp_track_matches_jax(track_inputs, variant):
     assert np.abs(Tj[:3, 3] - T_model[:3, 3]).max() > 1e-3  # the frame moved
     assert int(rt.num_inliers) == int(rj.num_inliers)
     np.testing.assert_allclose(float(rt.residual), float(rj.residual), rtol=1e-4)
-    np.testing.assert_allclose(float(rt.obs_ratio), float(rj.obs_ratio), rtol=1e-4)
+    np.testing.assert_allclose(float(ticp.obs_ratio(rt.gram)), float(rj.obs_ratio), rtol=1e-4)
     assert rt.num_inliers.dtype == torch.int32 and rt.ok.dtype == torch.bool

@@ -31,7 +31,7 @@ from topfusion_tpu_torch.tools import (
 )
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-TOOLS = ("bench_config", "bisect_preproc", "calibrate", "integrate_sweep", "make_synthetic_dataset",
+TOOLS = ("bench", "bench_config", "bisect_preproc", "calibrate", "integrate_sweep", "make_synthetic_dataset",
          "measure_collectives", "measure_scaling", "micro_primitives", "parity_ab", "profile_app",
          "profile_stages", "profile_sub", "timing", "view")
 

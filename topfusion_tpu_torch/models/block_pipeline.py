@@ -9,10 +9,11 @@ full rescan every ``visible_rescan_every`` frames) -> integrate ->
 color fusion (``use_color`` and an RGB frame) -> model maps (splat, or
 the guided / full raycast) -> their pyramid.
 
-The step issues no host sync of its own (no ``.item()``, no Python
-branch on a device value): the reset is a ``torch.where`` over the map,
-and the rescan computes both visible sets and selects.  The one sync is
-ICP's ``eigvalsh`` (see ops/icp.py).
+The step issues no host sync (no ``.item()``, no Python branch on a
+device value): the reset is a ``torch.where`` over the map, and the
+rescan computes both visible sets and selects.  With its shapes fixed by
+the configuration, it can be captured whole as a CUDA graph
+(``models/captured.CapturedStep``).
 
 The step does not modify the state it is given: the reset select writes
 new map tensors, into which integration then writes in place.

@@ -9,10 +9,9 @@ frame) -> raycast from the new pose (guided by the depth just fused, or
 over the whole volume) -> the model maps' pyramid.  The model maps fed
 to ICP are that raycast, not the previous sensor frame.
 
-As in ``models/block_pipeline.py`` the step issues no host sync of its
-own: the reset is a ``torch.where`` over the volume, and the one sync is
-ICP's ``eigvalsh`` (see ops/icp.py).  The step does not modify the state
-it is given.  The renders make no host sync at all.
+As in ``models/block_pipeline.py`` the step issues no host sync: the
+reset is a ``torch.where`` over the volume.  The step does not modify
+the state it is given.  The renders make no host sync either.
 """
 
 from __future__ import annotations

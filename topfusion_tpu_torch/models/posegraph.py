@@ -14,8 +14,9 @@ depends on the data).  What differs is the form, not the semantics:
   a copy per insert would move half a gigabyte.  No write reads a mask on
   the host, so inserting and detecting make no host sync of their own.
 * Loop verification runs the 2 x ``loop_candidates`` x queries ICPs as one
-  ``torch.func.vmap`` of ``ops.icp.icp_track``: one set of launches and one
-  batched ``eigvalsh`` (the one host sync of ``detect_loop``).
+  ``torch.func.vmap`` of ``ops.icp.icp_track``: one set of launches, then
+  one batched ``eigvalsh`` of their Gram matrices for the observability
+  gate (``ops.icp.obs_ratio``, the one host sync of ``detect_loop``).
 * Candidate ranking is a stable ascending sort: ``lax.top_k`` of the
   negated scores takes the lower index on ties, ``torch.topk`` promises no
   order.  ``torch.argmax`` takes the first maximum, as ``jnp.argmax``.
@@ -46,7 +47,7 @@ from ..geometry.se3 import (
     se3_log,
     transform_points,
 )
-from ..ops.icp import icp_track
+from ..ops.icp import icp_track, obs_ratio
 from ..utils.device_info import entry_device
 from ..utils.numerics import norm3, true_div
 
@@ -308,7 +309,7 @@ def detect_loop(
         & (res.num_inliers > icp_cfg.min_corresp * 4)
         # A rank-deficient system (bare wall, uniform corridor) converges
         # from anywhere along its null direction: never a verification.
-        & (res.obs_ratio > pg_cfg.loop_min_obs_ratio)
+        & (obs_ratio(res.gram) > pg_cfg.loop_min_obs_ratio)
     )
     # When both starts verify they must agree on the pose: translation-
     # invariant geometry lets each converge near its own start.

@@ -8,9 +8,9 @@ loop over ``BlockPipeline.step``), the keyframe inserts at every
 loop detection for the keyframes inserted, and the re-integration ring's
 writes.  The chunk reads nothing back until its end, where one ``.cpu()``
 of one packed tensor brings the poses, the per-frame health and the loop
-flags to the host.  Its host syncs are ICP's ``eigvalsh`` per frame, one
-more for the batched loop verification, and that fetch: n + 2 for n
-frames.
+flags to the host.  Its host syncs are the batched loop verification's
+``eigvalsh`` (``ops.icp.obs_ratio``) and that fetch: 2, whatever the
+number of frames.
 
 Loop optimization and map re-integration fire on the host after a
 closure, as in the JAX package: the pose-graph solve, then (when the

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ...config import BlockMapConfig, CameraConfig, TSDFConfig
+from ...utils import counters
 from .. import tsdf_block
 from ..blockmap import POOL_I16_SCALE, BlockMap
 from .build import load_library
@@ -189,3 +190,4 @@ def integrate_blocks_cuda(
 # run and read them after.
 integrate_blocks_cuda.launches = 0
 integrate_blocks_cuda.vector_launches = 0
+counters.register(integrate_blocks_cuda, "integrate_blocks_cuda", "launches", "vector_launches")

@@ -5,9 +5,13 @@ Each gated correspondence contributes a row ``[J | r]`` (7 floats) and
 the system is one Gram matmul ``G = rows^T rows`` (``torch.matmul`` with
 TF32 off, as XLA computed it outside any kernel); the 6x6 damped solve
 stays on the device (``torch.linalg.solve_ex``, no error-check sync), so
-the coarse-to-fine schedule runs without a host sync.  The one sync per
-call is ``torch.linalg.eigvalsh`` for ``obs_ratio``, which on the card
-synchronizes to check its result.
+``icp_track`` makes no host sync.  It returns the final undamped 6x6
+Gram matrix; ``obs_ratio(gram)`` turns it into the observability ratio
+that loop verification gates on.  That takes ``torch.linalg.eigvalsh``,
+which on the card synchronizes to check its result, so only its one
+reader (``models/posegraph.detect_loop``) calls it: the JAX package
+computes the ratio in every call, and XLA drops it unread from every
+jitted step.
 
 Gather modes: ``flat`` (the default; here a row gather of the
 concatenated 6-channel map, nearest or bilinear), ``take`` (plain
@@ -43,9 +47,18 @@ class ICPResult(NamedTuple):
     ok: torch.Tensor            # () bool — tracking success
     residual: torch.Tensor      # () mean |r| over inliers at final iter
     num_inliers: torch.Tensor   # () int32 at final iter
-    # () f32 observability: lambda_min / lambda_max of the final
-    # (undamped) 6x6 JtJ.
-    obs_ratio: torch.Tensor
+    # (6, 6) f32 final (undamped) JtJ: ``obs_ratio(gram)`` is the JAX
+    # package's ``obs_ratio``.
+    gram: torch.Tensor
+
+
+def obs_ratio(gram: torch.Tensor) -> torch.Tensor:
+    """Observability of [..., 6, 6] JtJ matrices: lambda_min / lambda_max,
+    ~1e-7 on rank-deficient geometry (a bare wall), ~1e-3 and more on a
+    well-constrained scene.  ``torch.linalg.eigvalsh`` syncs the host on
+    the card."""
+    eig = torch.linalg.eigvalsh(gram)
+    return torch.clamp(eig[..., 0], min=0.0) / torch.clamp(eig[..., 5], min=1e-20)
 
 
 def _any_nonzero(x: torch.Tensor) -> torch.Tensor:
@@ -302,9 +315,7 @@ def icp_track(
             carry = (T, ok, res, cnt * (ps * ps), G)
         T_est, ok_all, residual, inliers, G_last = carry
 
-    eig = torch.linalg.eigvalsh(G_last[:6, :6])
-    obs_ratio = torch.clamp(eig[0], min=0.0) / torch.clamp(eig[5], min=1e-20)
     return ICPResult(
         T_wc=T_est, ok=ok_all, residual=residual, num_inliers=inliers,
-        obs_ratio=obs_ratio,
+        gram=G_last[:6, :6],
     )

@@ -40,6 +40,8 @@ import pickle
 import torch
 import torch.distributed as dist
 
+from ..utils import counters
+
 
 class MapAxis:
     """The shards of one sharded map: a process group (``None``: the
@@ -62,6 +64,7 @@ class MapAxis:
         self.device = dev
         self.calls = 0
         self.bytes = 0
+        counters.register(self, "MapAxis", "calls", "bytes")
 
     def _count(self, t: torch.Tensor) -> None:
         self.calls += 1

@@ -26,6 +26,7 @@ failed ranks' tracebacks.  So does a world that outlives ``timeout_s``.
 
 from __future__ import annotations
 
+import contextlib
 import datetime
 import multiprocessing
 import os
@@ -124,3 +125,28 @@ def spawn_world(fn, ns: int, backend: str = "gloo", device="cuda", args=(),
             with open(Path(tmp, f"result-{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
         return results
+
+
+@contextlib.contextmanager
+def world_of_one(device="cuda"):
+    """A world of this one process for the ``with`` block, as the JAX
+    package's ``make_mesh(1)``: yields its ``MapAxis`` on ``device`` (the
+    card unless the caller names another), over NCCL on the card and gloo
+    on the CPU, and takes the process group down after the block."""
+    import torch.distributed as dist
+
+    from ..utils.device_info import entry_device
+    from .collectives import make_mesh
+
+    if dist.is_initialized():
+        raise RuntimeError("world_of_one: this process is already in a process group")
+    dev = entry_device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    with tempfile.TemporaryDirectory() as tmp:
+        store = dist.FileStore(os.path.join(tmp, "store"), 1)
+        dist.init_process_group(backend, store=store, rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=600))
+        try:
+            yield make_mesh(dev)
+        finally:
+            dist.destroy_process_group()

@@ -46,7 +46,8 @@ SESSIONS = 3
 def profiled(fn, *args, pad: bool = True):
     """``fn(*args)`` once under the profiler, between the pads (or bare):
     (device operations, their summed time in ms, Counter of device
-    microseconds by kernel name, pad kernels recorded)."""
+    microseconds by kernel name, pad kernels recorded, Counter of
+    launches by kernel name)."""
     from torch.profiler import ProfilerActivity, profile
 
     def spin():
@@ -60,6 +61,7 @@ def profiled(fn, *args, pad: bool = True):
         fn(*args)
         spin()
     by_name = collections.Counter()
+    launches = collections.Counter()
     ops = pads = 0
     for e in prof.events():
         if e.device_type != torch.autograd.DeviceType.CUDA:
@@ -68,8 +70,9 @@ def profiled(fn, *args, pad: bool = True):
             pads += 1
             continue
         by_name[e.name] += e.time_range.elapsed_us()
+        launches[e.name] += 1
         ops += 1
-    return ops, sum(by_name.values()) / 1000.0, by_name, pads
+    return ops, sum(by_name.values()) / 1000.0, by_name, pads, launches
 
 
 def profiler_check(device) -> dict:
@@ -86,7 +89,7 @@ def profiler_check(device) -> dict:
 
     out = {"padded": [], "bare": [], "pads": []}
     for _ in range(5):
-        ops, _, _, pads = profiled(fn)
+        ops, _, _, pads, _ = profiled(fn)
         out["padded"].append(ops)
         out["pads"].append(pads)
         out["bare"].append(profiled(fn, pad=False)[0])
@@ -130,7 +133,7 @@ class Timer:
         if self.device.type == "cuda":
             runs = [profiled(fn, *args) for _ in range(SESSIONS)]
             # A lost event only lowers a session's count: take the most.
-            rec["ops"], rec["device_ms"], rec["kernels"], _ = max(runs, key=lambda r: r[0])
+            rec["ops"], rec["device_ms"], rec["kernels"], _, _ = max(runs, key=lambda r: r[0])
             rec["sessions"] = [r[0] for r in runs]
         self.rows.append(rec)
         print(self.format(rec), flush=True)
