@@ -8,8 +8,9 @@ Phases, each of which must pass (else the exit code is 1):
 
   1. banner: torch / CUDA / nvcc / triton versions, and the card's name
      and power limit from nvidia-smi;
-  2. build the CUDA integrate kernels from ``topfusion_tpu_torch/csrc``
-     (the compiler's registers and spills are printed);
+  2. build the CUDA kernels from ``topfusion_tpu_torch/csrc`` (integrate
+     and eig6, one nvcc each, in parallel; the compiler's registers and
+     spills are printed);
   3. kernel vs plain PyTorch integrate on the card, on the map after a
      few frames of the bench orbit at the bench configuration (VGA,
      5 mm voxels, 2^16-block map, 4096 visible blocks): the whole pool
@@ -68,17 +69,18 @@ Phases, each of which must pass (else the exit code is 1):
      cull, the default pose graph: 256 keyframes, 1024 edges, keyframes
      every 10 frames at level 1, PCG 10 x 48, re-integration): (a) an
      80-frame out-and-back (lengthened to 100 or 120 if no loop closes)
-     through ``SlamSystem.process_chunk`` in chunks of 30: every frame
-     tracked, no reset, no block dropped, a loop closed, optimized ATE <
-     12 mm and <= 1.5 x the odometry's + 1 mm, one column-kernel launch
-     per frame and per re-fused frame, at most 2 host syncs (the loop
-     verification's eigvalsh, the fetch) for a chunk without a closure;
+     through ``SlamSystem.process_chunk`` (its captured chunk, solve and
+     rebuild) in chunks of 30: every frame tracked, no reset, no block
+     dropped, a loop closed, optimized ATE < 12 mm and <= 1.5 x the
+     odometry's + 1 mm, one column-kernel launch per frame and per
+     re-fused frame, one eig6 launch per chunk, at most 1 host sync (the
+     fetch) for a chunk without a closure that captured nothing;
      (b) the same frames with every correction rebuilding the map from the keyframes and a 32-frame ring,
      twice: a rebuild, launches = frames + the frames the rebuilds re-fuse,
      both runs' graphs and poses bit-identical, the rebuilt map raycast
      from the corrected pose within a median 3 voxels of the scene, 3
-     more frames tracked; then ``detect_loop``, ``_optimize_ex`` and
-     ``_reint`` timed on (b)'s graph and map, and one chunk profiled;
+     more frames tracked; then ``detect_loop`` (eager) timed on (b)'s
+     graph (the solve and the rebuild are timed in phase 20);
      (c) the app as a subprocess, ``--synthetic 60 --synthetic-vga --video
      --orbit-video 8``: exit 0, every output file, optimized ATE < 12 mm,
      video.gif with a half-size image per chunk and orbit.gif with 8
@@ -127,8 +129,9 @@ Phases, each of which must pass (else the exit code is 1):
      (a) a world of one NCCL process over phase 12 (a)'s frames in its
      chunks: trajectory, optimized trajectory, graph, map and counters
      bit-identical to phase 12 (a)'s ``SlamSystem``, one column-kernel
-     launch per frame and per re-fused frame, at most 3 host syncs
-     per chunk without a closure, every solve
+     launch per frame and per re-fused frame, at most 2 host syncs
+     per chunk without a closure (the eager chunk, the gloo world's
+     hook), every solve
      gn_iters x (cg_iters + 3) collectives of the bytes computed, the
      kernel bit-equal to plain on the shard's pool; ms, collectives and
      bytes per chunk, the solve's ms;
@@ -140,9 +143,10 @@ Phases, each of which must pass (else the exit code is 1):
      orbit: in the world of 1 bit-identical to phase 10's
      ``DensePipeline`` run, in the world of 4 of (b) ATE < 12 mm and the
      ranks' model maps identical; ms/frame, gathers and bytes per frame;
-     (e) ``measure_scaling_block`` and ``measure_scaling`` on worlds of 1
-     and 4 on this card, printed as overhead and contention, not
-     scaling (no efficiency: the processes share one card);
+     (e) ``measure_scaling_block`` on worlds of 1 and 4 on this card,
+     printed as overhead and contention, not scaling (no efficiency: the
+     processes share one card), and ``measure_scaling`` on a world of 1
+     ((d) runs the sharded dense pipeline on a world of 4);
      (b) a world of 4 gloo processes sharing the card over a wider
      out-and-back (60 frames, chunks of 10, every correction rebuilding
      the map from a 10-frame ring) with a ``ShardedHostCache`` per shard
@@ -213,13 +217,37 @@ Phases, each of which must pass (else the exit code is 1):
      the trajectory, every state field and every aux field, collectives
      counted per replay, that runner timed and a chunk of it profiled, the
      kernel bit-equal to plain on its map.
+ 20. the SLAM system's compiled entry points (``models/slam.CapturedSlam``)
+     and the eig6 kernel, at phase 12's configuration: (b) phase 12 (a)'s
+     frames with every correction rebuilding from a 32-frame ring, through
+     the captured system and the eager one (its ``_make_runner`` giving
+     None) chunk by chunk: bit-identical infos, state, graph, keyframe
+     stores, ring and poses after every chunk, the same integrate and eig6
+     launches, one host sync per chunk (a closure adds the solve's fetch
+     and the correction's), no capture during the run, ms per chunk in
+     both modes, the first chunk profiled in both modes (device
+     operations and time), the captured system's peak, resident and
+     reserved memory;
+     (c) the closure's solve and rebuild timed in both modes; (a) the
+     eig6 kernel on 10^4 seeded matrices and on the Gram batch (b)'s
+     loop detection gave it: eigenvalues and ratios bit-equal to the
+     plain twin run on the card, within 1e-12 x lambda_max of
+     ``torch.linalg.eigvalsh`` in float64; the wrapper (device time), the
+     kernel (profiler), the twin and ``eigvalsh`` (the library call, which
+     synchronizes) timed beside the kernel's bound; (d) the app,
+     ``--synthetic 60 --synthetic-vga``, through ``run_fusion.main`` in
+     this process (12 (c) runs it as a subprocess), captured and eager
+     (``SlamSystem._make_runner`` giving None for the call): frames/s,
+     ATE, the graphs it captured and their seconds.
 
-The kernel's launch count is set to 0 before each of the stepping paths
-(4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13, 14 and, in each
-shard's process, 15 (a), (b) and the capped sweep of (c), 16 (a) and (b),
-17 (a) and (b); 18 (b), (d) and (e); 19 (a), each scenario of (d) and (f))
-and read after it.  A replayed graph launches the kernel without calling
-its wrapper: the runner adds the launches it captured on every replay;
+The integrate kernel's launch count is set to 0 before each of the
+stepping paths (4, 7, 8, the capped sweep of 11, 12 (a) and (b), 13, 14
+and, in each shard's process, 15 (a), (b) and the capped sweep of (c), 16
+(a) and (b), 17 (a) and (b); 18 (b), (d) and (e); 19 (a), each scenario
+of (d) and (f); each chunk of 20 (b)) and read after it, and the eig6
+kernel's before 12 (a) and (b) and each chunk of 20 (b).  A replayed
+graph launches a kernel without calling its wrapper: the runner adds the
+launches it captured on every replay;
 the dense path launches no hand-written kernel (its integrate is XLA in
 the JAX package and plain PyTorch here).  What each
 phase took is printed.  The last lines are one JSON line of
@@ -253,10 +281,18 @@ PASSES = 6  # timed passes over the orbit, as bench.py:121-128
 REPEATS = 20  # timed calls per kernel-vs-plain measurement
 KERNEL_SOURCE = "topfusion_tpu_torch/csrc/integrate.cu"
 KERNEL_REPLACES = "topfusion_tpu/ops/pallas/integrate_kernel.py:242"
+KERNEL_SOURCES = ("integrate", "eig6")  # csrc/<name>.cu, built in parallel
+EIG6_SOURCE = "topfusion_tpu_torch/csrc/eig6.cu"
+EIG6_REPLACES = "topfusion_tpu/ops/icp.py:395"  # jnp.linalg.eigvalsh in XLA; no Pallas kernel
+EIG6_MATRICES = 10_000  # seeded matrices held bit-equal to the twin
+# float64 operations of one matrix: 8 sweeps x 15 rotations x 51 (a
+# rotation's scalar chain is 19, each of its four other rows 8).
+EIG6_OPS_PER_MATRIX = 8 * 15 * 51
 # Published peaks of one H100 SXM (NVIDIA's data sheet): device memory
 # rate, and float32 rate outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_OPS_PER_S = 67e12
+PEAK_FP64_OPS_PER_S = 34e12  # float64 outside the tensor cores, the same data sheet
 INTEGRATE_OPS_PER_VOXEL = 40  # float operations per voxel of a live entry
 ORBIT_VIEWS = 4  # off-trajectory display poses
 ORBIT_SWEEP_DEG = 40.0
@@ -317,15 +353,21 @@ def banner() -> str:
 
 
 def build_kernel() -> None:
+    """Build every CUDA source of the port, one ``nvcc`` each, all started
+    together, and print what the compiler says of each."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from topfusion_tpu_torch.ops.cuda.build import library_path, load_library
 
     t0 = time.perf_counter()
-    load_library("integrate")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(load_library, KERNEL_SOURCES))
     secs = time.perf_counter() - t0
-    print(f"build: integrate kernels ready in {secs:.2f} s")
-    log = library_path("integrate").with_suffix(".log")
-    if log.exists():
-        print(log.read_text().strip())
+    print(f"build: {', '.join(KERNEL_SOURCES)} kernels ready in {secs:.2f} s")
+    for name in KERNEL_SOURCES:
+        log = library_path(name).with_suffix(".log")
+        if log.exists():
+            print(log.read_text().strip())
 
 
 def render_frames(cfg, poses, device):
@@ -698,6 +740,28 @@ def profiled(fn):
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             us_by_name[e.name] += e.time_range.elapsed_us()
+            ops += 1
+    return ops, sum(us_by_name.values()) / 1000, wall_ms, us_by_name
+
+
+def profiled_raw(fn):
+    """``profiled``, its sums read from the profiler's raw device records
+    without building its event tree (which takes tens of seconds for the
+    some 450 000 records of an eager SLAM chunk)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1000
+    us_by_name = collections.Counter()
+    ops = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            us_by_name[e.name()] += e.duration_ns() / 1000
             ops += 1
     return ops, sum(us_by_name.values()) / 1000, wall_ms, us_by_name
 
@@ -1294,23 +1358,28 @@ def out_and_back(n: int, yaw: float = 0.08, shift: float = 0.10):
             for s in (math.sin(math.pi * i / (n - 1)) for i in range(n))]
 
 
-def run_slam(cfg, frames, device, count_syncs: bool = False, profile_chunk=None) -> dict:
-    """The frames through ``SlamSystem.process_chunk`` in chunks of
-    SLAM_CHUNK from a warmed system, the integrate launch counts set to 0
-    just before and read just after.  Every re-integration is recorded
-    with the frames it re-fuses (its keyframes, and the ring's frames),
-    which is the launch count the code implies.  With ``count_syncs`` the
-    host syncs of each chunk are counted (PyTorch's sync debug mode); the
-    chunk numbered ``profile_chunk`` runs under the profiler."""
+def run_slam(cfg, frames, device, count_syncs: bool = False) -> dict:
+    """The frames through ``SlamSystem.process_chunk`` (the captured
+    system) in chunks of SLAM_CHUNK from a warmed system, the integrate
+    and eig6 launch counts set to 0 just before and read just after.
+    Every re-integration is recorded with the frames it re-fuses (its
+    keyframes, and the ring's frames), which is the launch count the code
+    implies, and every chunk with the graphs it captured (a chunk of a
+    new length captures its tail: the warm-up captures the last chunk's
+    length too, so none should).  With ``count_syncs`` the host syncs of
+    each chunk are counted (PyTorch's sync debug mode)."""
     import warnings
 
     import torch
 
     from topfusion_tpu_torch.models.slam import SlamSystem
+    from topfusion_tpu_torch.ops.cuda.eig6 import obs_ratio_cuda
     from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
 
     slam = SlamSystem(cfg, device=device)
     slam.warmup(SLAM_CHUNK)
+    if len(frames) % SLAM_CHUNK:  # the last chunk's length, as its first use would
+        slam._runner.prepare(len(frames) % SLAM_CHUNK)
     refused = []
     reint = slam._reint
 
@@ -1320,32 +1389,31 @@ def run_slam(cfg, frames, device, count_syncs: bool = False, profile_chunk=None)
         return reint(*args)
 
     slam._reint = recorded_reint
-    r = dict(infos=[], chunk_ms=[], syncs=[], refused=refused)
+    r = dict(infos=[], chunk_ms=[], syncs=[], refused=refused, captures=[])
     torch.cuda.synchronize()
     integrate_blocks_cuda.launches = 0
     integrate_blocks_cuda.vector_launches = 0
+    obs_ratio_cuda.launches = 0
     for c0 in range(0, len(frames), SLAM_CHUNK):
         chunk = frames[c0:c0 + SLAM_CHUNK]
+        captures = slam._runner.captures
         t0 = time.perf_counter()
         with warnings.catch_warnings(record=True) as rec:
             warnings.simplefilter("always")
             if count_syncs:
                 torch.cuda.set_sync_debug_mode("warn")
             try:
-                if c0 // SLAM_CHUNK == profile_chunk:
-                    got = []
-                    r["profile"] = profiled(lambda: got.append(slam.process_chunk(chunk)))
-                    infos = got[0]
-                else:
-                    infos = slam.process_chunk(chunk)
+                infos = slam.process_chunk(chunk)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
         r["chunk_ms"].append((time.perf_counter() - t0) * 1000)
         r["syncs"].append(sum(str(w.message).startswith("called a synchronizing") for w in rec))
+        r["captures"].append(slam._runner.captures - captures)
         r["infos"] += infos
     torch.cuda.synchronize()
     r["launches"] = integrate_blocks_cuda.launches
     r["vector_launches"] = integrate_blocks_cuda.vector_launches
+    r["eig6_launches"] = obs_ratio_cuda.launches
     r["slam"] = slam
     return r
 
@@ -1368,8 +1436,11 @@ def check_slam(name, r, gt) -> tuple:
           f"re-integrations {slam.reintegrations} (re-fusing {r['refused']} frames); ATE "
           f"odometry {odom * 1000:.3f} mm, optimized {opt * 1000:.3f} mm; kernel launches "
           f"{r['launches']} ({r['vector_launches']} of the column kernel), implied {expect}; "
-          f"ms per chunk {[round(x, 1) for x in r['chunk_ms']]}, host syncs per chunk "
-          f"{r['syncs']}")
+          f"eig6 launches {r['eig6_launches']} (one per chunk: {n_chunks}); ms per chunk "
+          f"{[round(x, 1) for x in r['chunk_ms']]}, host syncs per chunk {r['syncs']}, "
+          f"graphs captured per chunk {r['captures']} (the runner's captures before: "
+          f"{slam._runner.captures - sum(r['captures'])}, in {slam._runner.capture_s:.2f} s "
+          f"with those)")
     check(all(i["ok"] for i in infos), f"{name}: a frame failed to track")
     check(not any(i["reset"] for i in infos), f"{name}: the pipeline reset")
     check(all(i["dropped"] == 0 for i in infos), f"{name}: blocks dropped")
@@ -1378,6 +1449,8 @@ def check_slam(name, r, gt) -> tuple:
     check(opt <= 1.5 * odom + 1e-3, f"{name}: optimized ATE {opt} m against odometry {odom} m")
     check(r["launches"] == expect, f"{name}: {r['launches']} launches, the code implies {expect}")
     check(r["vector_launches"] == r["launches"], f"{name}: did not take the column kernel")
+    check(r["eig6_launches"] == n_chunks, f"{name}: {r['eig6_launches']} eig6 launches, "
+          f"not one per chunk ({n_chunks})")
     return odom, opt
 
 
@@ -1416,18 +1489,21 @@ def slam_phase(device) -> tuple:
     for k, (ms, syncs) in enumerate(zip(a["chunk_ms"], a["syncs"])):
         size = min(SLAM_CHUNK, n - k * SLAM_CHUNK)
         loop = any(i["loop"] for i in a["infos"][k * SLAM_CHUNK:(k + 1) * SLAM_CHUNK])
-        if not loop:  # a closure adds the solve's fetch
-            check(syncs <= 2, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
+        # A closure adds the solve's fetch.
+        if not loop:
+            check(syncs <= 1, f"slam (a): chunk {k} of {size} frames synced {syncs} times")
+        check(a["captures"][k] == 0, f"slam (a): chunk {k} captured {a['captures'][k]} graphs")
     # What phase 16 (a) holds the sharded system to.
     slam_a = dict(gt=gt, frames=frames.cpu().numpy(), **slam_digest(a["slam"]),
-                  launches=a["launches"], refused=list(a["refused"]), chunk_ms=a["chunk_ms"])
+                  launches=a["launches"], refused=list(a["refused"]), chunk_ms=a["chunk_ms"],
+                  eig6_launches=a["eig6_launches"])
     del a["slam"]
 
     # (b): every correction rebuilds the map, from the keyframes and a ring.
     cfg_b = slam_config(min_map_correction=0.0, reint_ring=SLAM_RING)
     runs = []
     for k in range(2):
-        b = run_slam(cfg_b, frames, device, profile_chunk=0 if k else None)
+        b = run_slam(cfg_b, frames, device)
         slam = b["slam"]
         b["graph"] = [t.clone() for t in slam.graph]
         b["poses"] = np.stack(slam.odom_poses)
@@ -1437,7 +1513,7 @@ def slam_phase(device) -> tuple:
     slam = b["slam"]
     check_slam("slam (b)", b, gt)
     check(slam.reintegrations >= 1, "slam (b): no re-integration")
-    b_launches = b["launches"]
+    b_launches, b_eig6 = b["launches"], b["eig6_launches"]
     same = (all(torch.equal(x, y) for x, y in zip(runs[0]["graph"], runs[1]["graph"]))
             and np.array_equal(runs[0]["poses"], runs[1]["poses"])
             and np.array_equal(runs[0]["opt"], runs[1]["opt"]))
@@ -1460,21 +1536,10 @@ def slam_phase(device) -> tuple:
     more = slam.process_chunk(frames[-SLAM_MORE:])
     check(all(i["ok"] for i in more), "slam (b): tracking lost after the rebuild")
 
-    # What the pieces cost on the warm card, on the graph and map of (b).
+    # What loop detection costs eagerly on the warm card, on (b)'s graph.
     pgc = dataclasses.replace(cfg_b.posegraph, loop_queries=max(
         cfg_b.posegraph.loop_queries, SLAM_CHUNK // cfg_b.posegraph.keyframe_every))
     measure("detect_loop", lambda: detect_loop(slam.graph, slam.cam_l, pgc, cfg_b.icp), repeats=3)
-    kidx = len(slam.kf_odom_poses) - 1
-    measure("_optimize_ex", lambda: slam._optimize_ex(slam.graph, slam.kf_odom_buf[kidx]),
-            repeats=3)
-    measure("_reint", lambda: slam._reint(slam.state, slam.graph, slam.kf_depth_buf,
-                                          slam.kf_odom_buf[kidx], slam.kf_odom_buf, slam._ring(),
-                                          slam.frame_idx, len(slam.kf_odom_poses)), repeats=3)
-    ops, device_ms, wall_ms, top = runs[1]["profile"]
-    print(f"  (b)'s first chunk of {SLAM_CHUNK} frames, second run, under the profiler: "
-          f"{ops} device operations, "
-          f"{device_ms:.3f} ms of device time, wall {wall_ms:.1f} ms (with the profiler's cost); "
-          f"top kernels: " + "; ".join(f"{us / 1000:.3f} ms {k[:60]}" for k, us in top.most_common(4)))
     del runs, slam, b
 
     # (c): the app, as a user runs it.
@@ -1518,7 +1583,8 @@ def slam_phase(device) -> tuple:
         check(orbit == [(w, h, 10)] * APP_ORBIT_VIEWS,
               f"slam (c): orbit.gif holds {orbit}, not {APP_ORBIT_VIEWS} full-size images")
         check(summary["orbit_coverage"] > 0, "slam (c): the orbit renders show nothing")
-    return {"slam": a["launches"], "slam_reintegrate": b_launches}, slam_a
+    eig6 = {"slam": a["eig6_launches"], "slam_reintegrate": b_eig6}
+    return {"slam": a["launches"], "slam_reintegrate": b_launches}, eig6, slam_a
 
 
 def slam_digest(slam) -> dict:
@@ -2308,7 +2374,7 @@ def sharded_slam_phase(poses, frames, slam_a, dense_full) -> dict:
     for j, syncs in enumerate(a["syncs"]):
         size = min(SLAM_CHUNK, n - j * SLAM_CHUNK)
         if not any(i["loop"] for i in a["infos"][j * SLAM_CHUNK:(j + 1) * SLAM_CHUNK]):
-            check(syncs <= 3, f"16 (a): chunk {j} of {size} frames synced {syncs} times")
+            check(syncs <= 2, f"16 (a): chunk {j} of {size} frames synced {syncs} times")
     check(all(sv == (solve_calls, solve_bytes) for sv in a["solves"]) and a["solves"],
           f"16 (a): solves issued {a['solves']}, not {solve_calls} calls of {solve_bytes} B")
     check(a["kernel"]["equal"], "16 (a): kernel and plain differ on the local pool")
@@ -2351,7 +2417,8 @@ def sharded_slam_phase(poses, frames, slam_a, dense_full) -> dict:
     cfg_e = bench_config()
     t0 = time.perf_counter()
     blk = measure_scaling_block(cfg_e, n_frames=SCALING_FRAMES, device_counts=(1, SHARDS))
-    dense = measure_scaling(dense_config(), n_frames=SCALING_FRAMES, device_counts=(1, SHARDS))
+    # The dense path's world of 4 ran in (d): a world of 1 here.
+    dense = measure_scaling(dense_config(), n_frames=SCALING_FRAMES, device_counts=(1,))
     print(f"16 (e), one card: overhead and contention, not scaling ({time.perf_counter() - t0:.1f} s): "
           f"measure_scaling_block {blk}; measure_scaling {dense}")
     check(blk["efficiency"] is None and dense["efficiency"] is None,
@@ -3132,6 +3199,314 @@ def captured_phase(frames, flat_profile, seq_ms, smi, device) -> dict:
     return launches
 
 
+def eig6_matrices(n: int, seed: int = 20):
+    """``n`` seeded float32 6x6 symmetric matrices on the card: graded PSD
+    spectra (condition numbers 1 to 1e8, random scales and bases), a
+    tenth of rank 3, a tenth zero, a tenth diagonal."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, 6, 6)))
+    lam = 10.0 ** (rng.uniform(-3, 6, (n, 1)) - rng.uniform(0, 8, (n, 1)) * np.linspace(0, 1, 6))
+    k = n // 10
+    lam[:k, 3:] = 0.0
+    a = (q * lam[:, None, :]) @ q.transpose(0, 2, 1)
+    a = (a + a.transpose(0, 2, 1)) / 2
+    a[k:2 * k] = 0.0
+    a[2 * k:3 * k] = np.eye(6)[None] * rng.uniform(0.0, 5.0, (k, 1, 6))
+    return torch.from_numpy(a.astype(np.float32)).cuda()
+
+
+def eig6_phase(grams) -> dict:
+    """Phase 20 (a): the eig6 kernel against its plain twin (run on the
+    card) and ``torch.linalg.eigvalsh``, on EIG6_MATRICES seeded matrices
+    and on ``grams``, the Gram batch loop detection gave it in (b); then
+    timed at that batch.  Returns the kernel's JSON fields."""
+    import torch
+
+    from topfusion_tpu_torch.ops import icp
+    from topfusion_tpu_torch.ops.cuda.eig6 import eigvals_cuda, obs_ratio_cuda
+    from topfusion_tpu_torch.tools.timing import profiled as profiled_padded
+
+    a = eig6_matrices(EIG6_MATRICES)
+    launches = obs_ratio_cuda.launches
+    ratio, eig = eigvals_cuda(a)
+    twin = icp.jacobi_eigvals6(a)
+    ref = torch.linalg.eigvalsh(a.double())
+    err = float(((eig - ref).abs().amax(-1) / ref.abs().amax(-1).clamp(min=1e-300)).max())
+    same_eig = torch.equal(eig, twin)
+    same_ratio = torch.equal(ratio, icp.ratio_from_eigvals(twin))
+    if not same_eig:
+        ulps = (eig.view(torch.int64) - twin.view(torch.int64)).abs().max()
+        print(f"20 (a): eigenvalues differ from the twin by up to {int(ulps)} float64 ulps")
+    k, p = obs_ratio_cuda(grams), icp.obs_ratio_plain(grams)
+    e = torch.linalg.eigvalsh(grams)
+    lib = torch.clamp(e[..., 0], min=0.0) / torch.clamp(e[..., 5], min=1e-20)
+    max_abs_err = float((k - p).abs().max())
+    torch.cuda.synchronize()
+    check(obs_ratio_cuda.launches - launches == 2, "20 (a): the eig6 kernel was not launched twice")
+    obs_ratio_cuda.launches = launches  # the comparison is not the main path
+
+    w = time_calls(lambda: obs_ratio_cuda(grams), REPEATS, flush_l2=False)
+    # The kernel alone: REPEATS launches in one padded profiler session
+    # (a long process's profiler may lose the events at a session's edges).
+    _, _, by_name, _, launched = profiled_padded(
+        lambda: [obs_ratio_cuda(grams) for _ in range(REPEATS)])
+    names = [n for n in launched if "eig6_ratio_kernel" in n]
+    k_ms = by_name[names[0]] / launched[names[0]] / 1000.0 if names else None
+    k_seen = launched[names[0]] if names else 0
+    # The twin is some 3600 operations and the library call synchronizes:
+    # neither can be held behind a busy device, so both are timed on an
+    # idle one (the host's launch cost in it), and the twin's device time
+    # is the profiler's sum.
+    plain_ops, plain_dev_ms, _, _ = profiled(lambda: icp.obs_ratio_plain(grams))
+    spans = {}
+    for name, fn in (("plain", lambda: icp.obs_ratio_plain(grams)),
+                     ("library", lambda: torch.linalg.eigvalsh(grams))):
+        fn()
+        ts = []
+        for _ in range(REPEATS):
+            torch.cuda.synchronize()
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            fn()
+            ev1.record()
+            ev1.synchronize()
+            ts.append(ev0.elapsed_time(ev1))
+        spans[name] = statistics.median(ts)
+    obs_ratio_cuda.launches = launches
+    b = grams.numel() // 36
+    nbytes = b * (36 * 4 + 4)
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    ops_ms = b * EIG6_OPS_PER_MATRIX / PEAK_FP64_OPS_PER_S * 1e3
+    bound = max(bytes_ms, ops_ms)
+    print(f"20 (a), eig6 on {EIG6_MATRICES} seeded matrices: eigenvalues bit-equal to the twin "
+          f"{same_eig}, ratios bit-equal {same_ratio}; eigenvalues against torch.linalg.eigvalsh "
+          f"(float64): max error {err:.3e} of lambda_max")
+    print(f"  on loop detection's batch {tuple(grams.shape)}: max |kernel - twin| {max_abs_err}, "
+          f"max relative |kernel - eigvalsh (float32) ratio| "
+          f"{float(((k - lib).abs() / lib.abs().clamp(min=1e-30)).max()):.3e}")
+    print(f"  times at that batch: wrapper {w['device_ms']:.4f} ms device (CUDA events, device "
+          f"held busy, median of {REPEATS}), {w['wall_ms']:.4f} ms on an idle device; the kernel "
+          f"alone (profiler, mean of the {k_seen} of {REPEATS} launches it recorded) "
+          f"{fmt_ms(k_ms)}; the plain twin {plain_dev_ms:.4f} ms of device time "
+          f"in {plain_ops} operations (profiler), {spans['plain']:.4f} ms on an idle device; "
+          f"torch.linalg.eigvalsh {spans['library']:.4f} ms on an idle device (it synchronizes); "
+          f"bound {bound:.6f} ms by {'bytes' if bytes_ms >= ops_ms else 'operations'} "
+          f"({nbytes} B: {bytes_ms:.6f} ms; {b} x {EIG6_OPS_PER_MATRIX} float64 operations: "
+          f"{ops_ms:.6f} ms at {PEAK_FP64_OPS_PER_S / 1e12} TFLOP/s)")
+    check(same_eig and same_ratio, "20 (a): the kernel differs from its twin")
+    check(err <= 1e-12, f"20 (a): eigenvalues {err} of lambda_max from eigvalsh")
+    check(max_abs_err == 0.0, "20 (a): the kernel differs from its twin on the main path's batch")
+    return {"max_abs_err": max_abs_err, "ms": w["device_ms"], "plain_ms": plain_dev_ms,
+            "kernel_ms": k_ms, "bound_ms": bound,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "library_ms": spans["library"]}
+
+
+def slam_buffers(slam) -> list:
+    """Every device tensor a SLAM system carries between chunks."""
+    out = [t for v in slam.state for t in (v if isinstance(v, tuple) else (v,))]
+    out += list(slam.graph) + [slam.kf_depth_buf, slam.kf_odom_buf]
+    return out + (list(slam._ring()) if slam.R > 0 else [])
+
+
+def captured_slam_phase(frames, gt, device) -> dict:
+    """Phase 20 (b) and (c): phase 12 (a)'s frames at phase 12 (b)'s
+    configuration (every correction rebuilding, a ring of SLAM_RING)
+    through the captured system and the eager one (its ``_make_runner``
+    giving None), chunk by chunk, each chunk compared bit for bit.  Returns the Gram
+    batch the eager chunk gave the eig6 kernel, and the launches."""
+    import numpy as np
+    import torch
+
+    from topfusion_tpu_torch.models import posegraph
+    from topfusion_tpu_torch.models.slam import SlamSystem
+    from topfusion_tpu_torch.ops.cuda.eig6 import obs_ratio_cuda
+    from topfusion_tpu_torch.ops.cuda.integrate import integrate_blocks_cuda
+
+    cfg = slam_config(min_map_correction=0.0, reint_ring=SLAM_RING)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cap = SlamSystem(cfg, device=device)
+    cap.warmup(SLAM_CHUNK)
+    if len(frames) % SLAM_CHUNK:  # the last chunk's length, as the first use would
+        cap._runner.prepare(len(frames) % SLAM_CHUNK)
+    torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    mem = dict(peak=torch.cuda.max_memory_allocated() - base,
+               resident=torch.cuda.memory_allocated() - base,
+               reserved=torch.cuda.memory_reserved())
+    t0 = time.perf_counter()
+    eag = SlamSystem(cfg, device=device)
+    eag._make_runner = lambda: None
+    eag.warmup(SLAM_CHUNK)
+    torch.cuda.synchronize()
+    eager_warm_s = time.perf_counter() - t0
+    runner = cap._runner
+    print(f"20 (b): captured system warmed and captured in {warm_s:.2f} s ({runner.captures} "
+          f"graphs in {runner.capture_s:.2f} s), eager system warmed in {eager_warm_s:.2f} s; "
+          f"the captured system's memory: peak {mem['peak'] / 2**20:.1f} MiB, resident "
+          f"{mem['resident'] / 2**20:.1f} MiB, reserved {mem['reserved'] / 2**20:.1f} MiB; "
+          f"keyframe stores {(cap.graph.kf_points.nbytes + cap.graph.kf_normals.nbytes) / 2**20:.1f} "
+          f"+ {cap.kf_depth_buf.nbytes / 2**20:.1f} MiB")
+
+    spans = {}
+    grams = []
+
+    def timed(slam, key, fn):
+        def call(*a):
+            ev0, ev1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = fn(*a)
+            ev1.record()
+            spans.setdefault((slam, key), []).append((ev0, ev1))
+            return out
+        return call
+
+    def recorded(g):
+        grams.append(g.clone())
+        return obs_ratio(g)
+
+    obs_ratio = posegraph.obs_ratio
+    for slam in (cap, eag):
+        slam._solve = timed(slam, "solve", slam._solve)
+        slam._reint = timed(slam, "rebuild", slam._reint)
+    rows = []
+    launches = {}
+    for c0 in range(0, len(frames), SLAM_CHUNK):
+        chunk = frames[c0:c0 + SLAM_CHUNK]
+        row = {}
+        for name, slam in (("captured", cap), ("eager", eag)):
+            if name == "eager":
+                posegraph.obs_ratio = recorded
+            captures = runner.captures
+            torch.cuda.synchronize()
+            integrate_blocks_cuda.launches = obs_ratio_cuda.launches = 0
+            try:
+                if c0 == 0:
+                    got = []
+                    prof = profiled_raw(
+                        lambda: got.append(count_syncs(lambda: slam.process_chunk(chunk))))
+                    (infos, syncs), ms = got[0], prof[2]
+                    row[name + " profile"] = prof
+                else:
+                    t0 = time.perf_counter()
+                    infos, syncs = count_syncs(lambda: slam.process_chunk(chunk))
+                    ms = (time.perf_counter() - t0) * 1000
+            finally:
+                posegraph.obs_ratio = obs_ratio
+            torch.cuda.synchronize()
+            row[name] = dict(infos=infos, syncs=syncs, ms=ms, captures=runner.captures - captures,
+                             launches=(integrate_blocks_cuda.launches, obs_ratio_cuda.launches))
+            launches[name] = tuple(a + b for a, b in zip(launches.get(name, (0, 0)),
+                                                         row[name]["launches"]))
+        same = (row["captured"]["infos"] == row["eager"]["infos"]
+                and all(torch.equal(a, b) for a, b in zip(slam_buffers(cap), slam_buffers(eag)))
+                and np.array_equal(np.stack(cap.odom_poses), np.stack(eag.odom_poses))
+                and (cap.loops_closed, cap.reintegrations) == (eag.loops_closed, eag.reintegrations))
+        row["same"] = same
+        row["loop"] = row["captured"]["infos"][0]["loop"]
+        rows.append(row)
+        c, e = row["captured"], row["eager"]
+        print(f"  chunk {c0 // SLAM_CHUNK} ({len(chunk)} frames{', a closure' if row['loop'] else ''}): "
+              f"captured {c['ms']:.1f} ms, {c['syncs']} host syncs, {c['captures']} graphs "
+              f"captured, launches (integrate, eig6) {c['launches']}; eager {e['ms']:.1f} ms, "
+              f"{e['syncs']} host syncs, launches {e['launches']}; bit-identical "
+              f"(infos, state, graph, stores, ring, poses) {same}"
+              + (" (chunk 0 under the profiler in both modes: ms with its cost)"
+                 if c0 == 0 else ""))
+        check(same, f"20 (b): the captured chunk at frame {c0} differs from the eager one")
+        check(c["launches"] == e["launches"], f"20 (b): launches differ at frame {c0}")
+        check(c["launches"][1] == 1, f"20 (b): the chunk at frame {c0} launched eig6 "
+                                     f"{c['launches'][1]} times, not once")
+        check(c["captures"] == 0, f"20 (b): the chunk at frame {c0} captured a graph")
+        # A closure adds the solve's fetch and the correction's.
+        want = 1 + row["loop"] + bool(c["infos"][0].get("reintegrated"))
+        for mode, r in (("captured", c), ("eager", e)):
+            check(r["syncs"] == want, f"20 (b): the {mode} chunk at frame {c0} synced "
+                                      f"{r['syncs']} times, not {want}")
+    for name in ("captured", "eager"):
+        ops, device_ms, wall_ms, top = rows[0][name + " profile"]
+        print(f"  chunk 0 {name}, profiled: {ops} device operations, {device_ms:.3f} ms of device "
+              f"time, wall {wall_ms:.1f} ms (with the profiler's cost); top kernels: "
+              + "; ".join(f"{us / 1000:.3f} ms {k[:50]}" for k, us in top.most_common(3)))
+    # (c): the closure's solve and rebuild.
+    closures = [r for r in rows if r["loop"]]
+    check(closures, "20 (c): no loop closed")
+    torch.cuda.synchronize()
+    for key in ("solve", "rebuild"):
+        got = {name: [round(a.elapsed_time(b), 3) for a, b in spans.get((slam, key), [])]
+               for name, slam in (("captured", cap), ("eager", eag))}
+        print(f"20 (c), {key}: captured {got['captured']} ms, eager {got['eager']} ms (CUDA "
+              f"events around the call; its fetch is one host sync of the chunk's count)")
+        check(got["captured"] and len(got["captured"]) == len(got["eager"]),
+              f"20 (c): {key}: not run in both modes")
+    check(cap.reintegrations >= 1, "20 (c): no rebuild")
+    ate = ate_of(cap, gt)
+    print(f"20 (b), (c): {len(frames)} frames, loops {cap.loops_closed}, rebuilds "
+          f"{cap.reintegrations}, optimized ATE {ate * 1000:.3f} mm; the tail's graph per "
+          f"replay {runner.tails[(SLAM_CHUNK, False)].graph.per_replay}")
+    check(ate < ATE_LIMIT_M, f"20 (b): optimized ATE {ate} m")
+    out = dict(grams=grams[-1], launches=launches)
+    del cap, eag
+    torch.cuda.empty_cache()
+    return out
+
+
+def ate_of(slam, gt) -> float:
+    from topfusion_tpu_torch.io.trajectory import ate_rmse
+
+    return ate_rmse(slam.optimized_trajectory(), gt, align=False)
+
+
+def app_phase() -> dict:
+    """Phase 20 (d): the app at ``--synthetic-vga`` through its entry
+    point ``run_fusion.main`` in this process (12 (c) runs it as a
+    subprocess), captured (as a user runs it) and eager
+    (``SlamSystem._make_runner`` giving None for the call): frames/s, ATE
+    and captures of each."""
+    import contextlib
+    import io
+
+    from topfusion_tpu_torch.apps import run_fusion
+    from topfusion_tpu_torch.models.slam import SlamSystem
+
+    args = ["--synthetic", str(SLAM_APP_FRAMES), "--synthetic-vga"]
+    make_runner = SlamSystem._make_runner
+    summaries = {}
+    for mode in ("captured", "eager"):
+        with tempfile.TemporaryDirectory() as out:
+            if mode == "eager":
+                SlamSystem._make_runner = lambda self: None
+            t0 = time.perf_counter()
+            try:
+                with contextlib.redirect_stdout(io.StringIO()):
+                    rc = run_fusion.main([*args, "--out", out])
+            finally:
+                SlamSystem._make_runner = make_runner
+            secs = time.perf_counter() - t0
+            check(rc == 0, f"20 (d): the {mode} app returned {rc}")
+            with open(os.path.join(out, "metrics.json")) as f:
+                summary = json.load(f)
+        print(f"20 (d), {mode}: the app {' '.join(args)} returned 0 in {secs:.1f} s: app_fps_total "
+              f"{summary['app_fps_total']:.3f}, app_fps_steady "
+              f"{summary.get('app_fps_steady', 0):.3f} frames/s; ATE odometry "
+              f"{summary['ate_odom_m'] * 1000:.3f} mm, optimized {summary['ate_opt_m'] * 1000:.3f} "
+              f"mm; warmup {summary['warmup_s']:.2f} s with {summary['graphs_captured']} graphs "
+              f"captured in {summary['capture_s']:.2f} s; loops {summary['loops_closed']}")
+        check(summary["ate_opt_m"] < ATE_LIMIT_M,
+              f"20 (d): the {mode} app's optimized ATE {summary['ate_opt_m']} m")
+        summaries[mode] = summary
+    check(summaries["captured"]["graphs_captured"] >= 4, "20 (d): the app captured no graphs")
+    check(summaries["eager"]["graphs_captured"] == 0, "20 (d): the eager app captured graphs")
+    return summaries
+
+
 def main() -> int:
     try:
         import torch
@@ -3195,7 +3570,7 @@ def main() -> int:
         launches["step_out_of_core_sweep"], sweep = swap_phase(device)
         took("phase 11, out-of-core sweep")
         torch.cuda.empty_cache()
-        slam_launches, slam_a = slam_phase(device)
+        slam_launches, eig6_launches, slam_a = slam_phase(device)
         launches.update(slam_launches)
         took("phase 12, SLAM")
         launches["step_icp_onehot"] = onehot_phase(frames, poses, est, flat_profile, device)
@@ -3216,6 +3591,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         launches.update(captured_phase(frames, flat_profile, seq_ms, smi, device))
         took("phase 19, captured step and tools/bench")
+        torch.cuda.empty_cache()
+        slam_frames = torch.as_tensor(slam_a["frames"], device=device)
+        captured_slam = captured_slam_phase(slam_frames, slam_a["gt"], device)
+        eig6 = eig6_phase(captured_slam["grams"])
+        app_phase()
+        launches["slam_captured_vs_eager"] = captured_slam["launches"]["captured"][0]
+        eig6_launches["slam_captured_vs_eager"] = captured_slam["launches"]["captured"][1]
+        took("phase 20, captured SLAM system and eig6")
     except Exception:  # every phase failure ends the run with exit code 1
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -3235,6 +3618,14 @@ def main() -> int:
         "bound_ms": k["bound_ms"],
         "bound_by": k["bound_by"],
         "library_ms": None,  # no single PyTorch call computes this function
+    }, {
+        "name": "eig6",
+        "route": "cuda",
+        "source": EIG6_SOURCE,
+        "replaces": EIG6_REPLACES,
+        "launches": sum(eig6_launches.values()),
+        "launches_by_path": eig6_launches,
+        **eig6,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

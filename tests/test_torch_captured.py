@@ -167,15 +167,30 @@ def refuse_eigvalsh(*args, **kw):
     raise AssertionError("torch.linalg.eigvalsh called on a stepping path")
 
 
-@pytest.mark.parametrize("kind", ["block", "dense"])
+@pytest.mark.parametrize("kind", ["block", "dense", "slam_chunk"])
 def test_steps_never_call_eigvalsh(jax_run, monkeypatch, kind):
     """The step's ICP no longer computes eigenvalues that no stepping
-    caller reads (the JAX package's are dropped unread under ``jit``)."""
+    caller reads (the JAX package's are dropped unread under ``jit``);
+    and a SLAM chunk, whose loop detection gates on ``obs_ratio``, takes
+    them from the Jacobi solver (``ops/icp.jacobi_eigvals6``, on the card
+    the eig6 kernel), not from ``torch.linalg.eigvalsh``."""
     cfg = config_from_reference(jax_run["cfg"])
     cfg = dataclasses.replace(cfg, dense=dataclasses.replace(cfg.dense, dims=(64, 64, 64)))
+    monkeypatch.setattr(torch.linalg, "eigvalsh", refuse_eigvalsh)
+    if kind == "slam_chunk":
+        from topfusion_tpu_torch.models.slam import SlamSystem
+
+        slam = SlamSystem(dataclasses.replace(cfg, posegraph=dataclasses.replace(
+            cfg.posegraph, keyframe_every=1, max_keyframes=8, max_edges=16)), device="cpu")
+        calls = []
+        monkeypatch.setattr(ticp, "obs_ratio_plain",
+                            lambda g, f=ticp.obs_ratio_plain: calls.append(g.shape) or f(g))
+        infos = slam.process_chunk(torch.from_numpy(jax_run["frames"][:2]))
+        assert all(i["ok"] for i in infos) and int(slam.graph.num_kf) == 2
+        assert calls == [(2, 2, 4, 6, 6)]  # one batch: 2 queries x 2 starts x 4 candidates
+        return
     pipe = (BlockPipeline if kind == "block" else DensePipeline)(cfg, device="cpu")
     state = pipe.init()
-    monkeypatch.setattr(torch.linalg, "eigvalsh", refuse_eigvalsh)
     for f in jax_run["frames"][:2]:
         state, aux = pipe.step(state, torch.from_numpy(f))
         assert bool(aux.ok)

@@ -702,9 +702,11 @@ def slam_frames(cfg, n, device):
 
 @pytest.mark.cuda
 def test_slam_chunk_syncs_at_most_n_plus_2():
-    """A chunk of frames (on the card already) syncs the host at most
-    twice, whatever its length: the batched loop verification's eigvalsh
-    and the one fetch (the steps make none)."""
+    """A chunk of frames (on the card already) syncs the host once,
+    whatever its length: the one fetch (the steps make none, and loop
+    verification's eigenvalues come from the eig6 kernel).  The warm-up
+    captures the chunk's graphs first, as the app's does: a capture
+    synchronizes."""
     from topfusion_tpu_torch.models.slam import SlamSystem
 
     if not torch.cuda.is_available():
@@ -713,13 +715,14 @@ def test_slam_chunk_syncs_at_most_n_plus_2():
     frames = slam_frames(cfg, 15, "cuda")
     slam = SlamSystem(cfg)
     ke = cfg.posegraph.keyframe_every
+    slam.warmup(ke)
     counts = []
     for c0 in range(0, 15, ke):
         infos, syncs = count_syncs(lambda: slam.process_chunk(frames[c0:c0 + ke]))
         assert all(i["ok"] for i in infos)
         if not any(i["loop"] for i in infos):   # a closure adds the solve's fetch
             counts.append(len(syncs))
-            assert len(syncs) <= 2, syncs
+            assert len(syncs) == 1, syncs
     assert counts and slam.loops_closed >= 1
 
 
@@ -1229,3 +1232,184 @@ def test_bench_scenarios_on_the_card(mapped):
             assert detail["backend"] == "nccl"
         del detail
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------- eig6
+def eig6_inputs(n, seed=0):
+    """``n`` seeded float32 6x6 symmetric matrices: graded PSD spectra
+    (condition numbers 1 to 1e8, random scales), a tenth rank-deficient,
+    a tenth zero, a tenth diagonal."""
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, 6, 6)))
+    lam = 10.0 ** (rng.uniform(-3, 6, (n, 1)) - rng.uniform(0, 8, (n, 1)) * np.linspace(0, 1, 6))
+    k = n // 10
+    lam[:k, 3:] = 0.0
+    a = (q * lam[:, None, :]) @ q.transpose(0, 2, 1)
+    a = (a + a.transpose(0, 2, 1)) / 2
+    a[k:2 * k] = 0.0
+    a[2 * k:3 * k] = np.eye(6)[None] * rng.uniform(0.0, 5.0, (k, 1, 6))
+    return torch.from_numpy(a.astype(np.float32))
+
+
+@pytest.mark.cuda
+def test_eig6_kernel_is_bit_equal_to_its_twin():
+    """The kernel on 10^4 seeded matrices: eigenvalues and ratios
+    bit-equal to the plain twin run on the card (float64 with one IEEE
+    rounding per operation on both), eigenvalues within 1e-12 x lambda_max
+    of ``torch.linalg.eigvalsh`` in float64; one launch counted, no host
+    sync."""
+    from topfusion_tpu_torch.ops import icp
+    from topfusion_tpu_torch.ops.cuda.eig6 import eigvals_cuda, obs_ratio_cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("the eig6 kernel runs only on an NVIDIA GPU")
+    a = eig6_inputs(10_000).cuda()
+    eigvals_cuda(a[:1])
+    before = obs_ratio_cuda.launches
+    ratio, eig = forbid_syncs(lambda: eigvals_cuda(a))
+    torch.cuda.synchronize()
+    assert obs_ratio_cuda.launches - before == 1
+    twin = icp.jacobi_eigvals6(a)
+    assert torch.equal(eig, twin)
+    assert torch.equal(ratio, icp.ratio_from_eigvals(twin))
+    assert torch.equal(obs_ratio_cuda(a), ratio) and torch.equal(icp.obs_ratio(a), ratio)
+    ref = torch.linalg.eigvalsh(a.double())
+    err = (eig - ref).abs().amax(-1) / ref.abs().amax(-1).clamp(min=1e-300)
+    assert float(err.max()) <= 1e-12
+
+
+@pytest.mark.cuda
+def test_eig6_wrapper_refuses_what_the_kernel_does_not_take():
+    from topfusion_tpu_torch.ops.cuda.eig6 import obs_ratio_cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("the eig6 kernel runs only on an NVIDIA GPU")
+    with pytest.raises(ValueError, match="float32"):
+        obs_ratio_cuda(torch.zeros((2, 6, 6), dtype=torch.float64, device="cuda"))
+    with pytest.raises(ValueError, match="float32"):
+        obs_ratio_cuda(torch.zeros((2, 5, 5), device="cuda"))
+
+
+# ----------------------------------------------------------------- captured SLAM
+def rebuilding_slam_cfg():
+    """slam_cfg with an 8-frame ring and every correction rebuilding."""
+    cfg = slam_cfg()
+    return dataclasses.replace(cfg, posegraph=dataclasses.replace(
+        cfg.posegraph, reint_ring=8, min_map_correction=0.0))
+
+
+def slam_numpy(slam):
+    from topfusion_tpu_torch.convert import slam_state_to_numpy
+
+    return slam_state_to_numpy(slam)
+
+
+def slam_differs(x, y):
+    """The fields in which two ``slam_state_to_numpy`` values differ
+    (empty: bit-identical)."""
+    bad = []
+    for part in ("state", "graph"):
+        for name, v in x[part].items():
+            w = y[part][name]
+            pairs = zip(v, w) if isinstance(v, tuple) else [(v, w)]
+            if not all(np.array_equal(p, q) for p, q in pairs):
+                bad.append(f"{part}.{name}")
+    for name in ("kf_depth_buf", "kf_odom_buf"):
+        if not np.array_equal(x[name], y[name]):
+            bad.append(name)
+    if not all(np.array_equal(p, q) for p, q in zip(x["ring"], y["ring"])):
+        bad.append("ring")
+    for name in ("odom_poses", "kf_odom_poses"):
+        if not np.array_equal(np.stack(x[name]), np.stack(y[name])):
+            bad.append(name)
+    for name in ("kf_for_frame", "frame_idx", "loops_closed", "reintegrations"):
+        if x[name] != y[name]:
+            bad.append(name)
+    return bad
+
+
+SLAM_DO_KF = (True, False, True, True, True)  # the chunks of 3 frames
+
+
+@pytest.fixture(scope="module")
+def captured_slam():
+    """The 15-frame out-and-back in chunks of 3 through the captured
+    system and the eager one (``_make_runner`` giving None), each warmed
+    first: the
+    first three chunks (frame0 0, 3, 6; do_kf True, False, True), then
+    the rest (closures, solves, rebuilds).  Per system: the state after
+    three chunks and at the end, infos, host syncs per chunk, integrate
+    and eig6 launches."""
+    from topfusion_tpu_torch.models.slam import SlamSystem
+    from topfusion_tpu_torch.ops.cuda.eig6 import obs_ratio_cuda
+
+    if not torch.cuda.is_available():
+        pytest.skip("the SLAM system's card path runs on an NVIDIA GPU")
+    cfg = rebuilding_slam_cfg()
+    frames = slam_frames(cfg, 15, "cuda")
+    runs = {}
+    for capture in (True, False):
+        slam = SlamSystem(cfg)
+        if not capture:
+            slam._make_runner = lambda: None
+        slam.warmup(3)
+        torch.cuda.synchronize()
+        launches = (integrate_blocks_cuda.launches, obs_ratio_cuda.launches)
+        r = dict(slam=slam, infos=[], syncs=[])
+        for c, kf in enumerate(SLAM_DO_KF):
+            got, syncs = count_syncs(lambda: slam.process_chunk(frames[3 * c:3 * c + 3], do_kf=kf))
+            r["infos"] += got
+            r["syncs"].append(len(syncs))
+            if c == 2:
+                r["three"] = slam_numpy(slam)
+        torch.cuda.synchronize()
+        r["launches"] = (integrate_blocks_cuda.launches - launches[0],
+                         obs_ratio_cuda.launches - launches[1])
+        r["end"] = slam_numpy(slam)
+        runs[capture] = r
+    return runs
+
+
+@pytest.mark.cuda
+def test_captured_chunks_are_the_eager_chunks(captured_slam):
+    """Three chunks of different frame0 and do_kf replayed from one tail
+    graph: bit-identical to the eager chunks (a value baked into the
+    graph would part them), and the infos equal."""
+    cap, eag = captured_slam[True], captured_slam[False]
+    assert cap["slam"]._runner is not None and eag["slam"]._runner is None
+    assert slam_differs(cap["three"], eag["three"]) == []
+    assert cap["infos"][:9] == eag["infos"][:9]
+    assert all(i["ok"] for i in cap["infos"])
+    assert cap["three"]["graph"]["num_kf"] == 2  # the do_kf=False chunk added none
+
+
+@pytest.mark.cuda
+def test_captured_solve_and_rebuild_are_the_eager_ones(captured_slam):
+    """The whole run, closures and rebuilds included: bit-identical, the
+    same integrate and eig6 launches (counted per replay)."""
+    cap, eag = captured_slam[True], captured_slam[False]
+    assert cap["slam"].loops_closed >= 1 and cap["slam"].reintegrations >= 1
+    assert slam_differs(cap["end"], eag["end"]) == []
+    assert cap["infos"] == eag["infos"]
+    assert cap["launches"] == eag["launches"] and cap["launches"][1] == len(SLAM_DO_KF)
+
+
+@pytest.mark.cuda
+def test_captured_chunk_syncs_once(captured_slam):
+    """One host sync per chunk (the fetch); a closure adds the solve's
+    fetch and, with a rebuild, the correction's."""
+    cap = captured_slam[True]
+    for c, syncs in enumerate(cap["syncs"]):
+        chunk = cap["infos"][3 * c:3 * c + 3]
+        want = 1 + (chunk[0]["loop"]) + bool(chunk[0].get("reintegrated"))
+        assert syncs == want, (c, syncs, want)
+
+
+@pytest.mark.cuda
+def test_chunk_replays_make_no_host_sync(captured_slam):
+    """The runner's chunk (the step replays, the copies, the tail replay)
+    under sync debug mode "error"; the fetch is the caller's."""
+    slam = captured_slam[True]["slam"]
+    frames = slam_frames(slam.cfg, 15, "cuda")[:3]
+    forbid_syncs(lambda: slam._runner.chunk(frames, None, slam.frame_idx, True))
+    torch.cuda.synchronize()

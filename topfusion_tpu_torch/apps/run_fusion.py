@@ -19,7 +19,9 @@ CPU) and writes:
 
 The loop is chunked: ``--chunk`` frames per ``process_chunk`` call (about
 a second of frames by default, rounded to the keyframe cadence), one host
-fetch per chunk.  PNGs are written by ``io/png.py`` and GIFs by
+fetch per chunk.  On the card the chunk, the solve and the rebuild replay
+CUDA graphs, captured in the warm-up (``metrics.json``: ``graphs_captured``,
+``capture_s``).  PNGs are written by ``io/png.py`` and GIFs by
 ``io/gif.py``, so the app needs no image library.
 
 Usage:
@@ -268,6 +270,12 @@ def main(argv=None) -> int:
 
     summary = metrics.summary()
     summary["warmup_s"] = warmup_s
+    # On the card the chunk, the solve and the rebuild are CUDA graphs:
+    # how many were captured (the warm-up's, and a trailing partial
+    # chunk's on first use) and the seconds they took.
+    runner = slam._runner
+    summary["graphs_captured"] = runner.captures if runner is not None else 0
+    summary["capture_s"] = runner.capture_s if runner is not None else 0.0
     summary["app_fps_total"] = done / max(t_end - t_start, 1e-9)
     if t_after_first is not None and frames_after_first > 0:
         summary["app_fps_steady"] = frames_after_first / max(t_end - t_after_first, 1e-9)

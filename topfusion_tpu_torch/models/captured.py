@@ -1,5 +1,9 @@
-"""A pipeline's step captured as a CUDA graph: the counterpart of the JAX
-package's ``jax.jit(pipe._step)``.
+"""The port's compiled entry points: a pipeline's step captured as a
+CUDA graph (the counterpart of the JAX package's ``jax.jit(pipe._step)``),
+and the pieces the SLAM system's graphs are built of
+(``models/slam.CapturedSlam``: its chunk, solve and re-integration, the
+JAX package's ``jax.jit``s of ``_chunk_impl``, ``_optimize_ex_impl`` and
+``_reint_impl``, topfusion_tpu/models/slam.py:117-120).
 
     runner = CapturedStep(pipe, state)    # warm-up, then one step captured
     aux = runner.run(frames)              # [n, H, W] on the card: n replays
@@ -27,12 +31,16 @@ raises.  Given a state on the CPU it runs the eager step instead, so the
 CPU tests drive the same calls.
 
 The launch counts the wrappers keep in Python (``utils/counters``: the
-integrate kernel's, the map axis's collectives) advance when a wrapper
-is called, so once while the step is captured (and once per warm-up
-step, which ran).  The runner reads every registered count around the
-capture, keeps what the capture counted (``per_replay``, by count name),
-takes it back (nothing ran), and adds it on every replay, so each count
-stays the number of launches that ran.
+integrate kernel's, the eig6 kernel's, the map axis's collectives)
+advance when a wrapper is called, so once while a graph is captured (and
+once per warm-up step, which ran).  Each capture reads every registered
+count around itself, keeps what it counted (``per_replay``, by count
+name), takes it back (nothing ran), and adds it on every replay, so each
+count stays the number of launches that ran.
+
+``Graph`` is one capture and its counts; ``CapturedStep`` is a step's.
+``models/slam.CapturedSlam`` builds the SLAM system's graphs on both,
+with the state helpers ``map_state``, ``copy_into`` and ``stack_aux``.
 """
 
 from __future__ import annotations
@@ -59,7 +67,8 @@ def _fields(state: NamedTuple):
             yield name, v
 
 
-def _map_state(fn, state: NamedTuple) -> NamedTuple:
+def map_state(fn, state: NamedTuple) -> NamedTuple:
+    """``fn`` of every tensor of a state (tuple fields element by element)."""
     return type(state)(*[
         tuple(fn(t) for t in v) if isinstance(v, tuple) else fn(v) for v in state
     ])
@@ -73,20 +82,65 @@ def _copy_state(dst: NamedTuple, src: NamedTuple) -> None:
         d.copy_(s)
 
 
-def _stack_aux(auxes: list) -> NamedTuple:
+def copy_into(dst: NamedTuple, src: NamedTuple) -> None:
+    """``_copy_state`` that skips the fields ``src`` shares with ``dst``
+    (a tensor written in place, or one the graph left alone)."""
+    for (name, d), (_, s) in zip(_fields(dst), _fields(src)):
+        if s is not d:
+            if d.shape != s.shape or d.dtype != s.dtype:
+                raise ValueError(f"{name} is {tuple(s.shape)} {s.dtype}, the captured "
+                                 f"buffer {tuple(d.shape)} {d.dtype}")
+            d.copy_(s)
+
+
+def stack_aux(auxes: list) -> NamedTuple:
+    """Per-frame auxes as one, each field stacked to [n]."""
     return type(auxes[0])(*[torch.stack(v) for v in zip(*auxes)])
+
+
+class Graph:
+    """``fn()`` captured once as a CUDA graph on the current device, with
+    the registered launch counts it adds per replay (see the module
+    docstring).  ``pool`` is a memory pool shared with other graphs
+    (``torch.cuda.graph_pool_handle()``)."""
+
+    def __init__(self, fn, pool=None):
+        torch.cuda.synchronize()
+        before = counters.read()
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: NCCL's watchdog thread polls its events while
+        # the sharded step's collectives are being captured.
+        with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
+            fn()
+        # The capture launched nothing: what it counted is one replay's.
+        self.counts = []  # (owner, attribute, count)
+        self.per_replay = {}
+        for (o, a), v in counters.read().items():
+            d = v - before.get((o, a), 0)
+            if d:
+                setattr(o, a, v - d)
+                self.counts.append((o, a, d))
+                self.per_replay[counters.name(o, a)] = d
+
+    def replay(self) -> None:
+        self.graph.replay()
+        for o, a, d in self.counts:
+            setattr(o, a, getattr(o, a) + d)
 
 
 class CapturedStep:
     """``pipe.step`` captured once for ``state``'s shapes on its device
     (or run eagerly for a state on the CPU), for u16 depth frames in
-    millimetres."""
+    millimetres and, with ``rgb``, registered uint8 color frames.
+    ``adopt``: the graph's buffers are ``state``'s own tensors (which
+    must be contiguous and unaliased), not copies; ``pool``: a memory
+    pool shared with other graphs."""
 
-    def __init__(self, pipe, state: NamedTuple):
+    def __init__(self, pipe, state: NamedTuple, rgb: bool = False, pool=None,
+                 adopt: bool = False):
         self.pipe = pipe
         self.device = state.T_wc.device
         self.per_replay = {}
-        self._per_replay = []  # (owner, attribute, count)
         self.graph = None
         cam = pipe.cfg.camera
         self.frame_shape = (cam.height, cam.width)
@@ -94,49 +148,46 @@ class CapturedStep:
             self._state = state
             return
         with torch.cuda.device(self.device), torch.no_grad():
-            self._static = _map_state(torch.clone, state)
+            self._static = state if adopt else map_state(torch.clone, state)
             self._depth = torch.zeros(self.frame_shape, dtype=torch.int32,
                                       device=self.device).to(torch.uint16)
+            self._rgb = (torch.zeros((*self.frame_shape, 3), dtype=torch.uint8,
+                                     device=self.device) if rgb else None)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
                 for _ in range(WARMUP_STEPS):
-                    pipe.step(self._static, self._depth)
+                    self._step(self._static, self._depth, self._rgb)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            torch.cuda.synchronize(self.device)
-            before = counters.read()
-            self.graph = torch.cuda.CUDAGraph()
-            # thread_local: NCCL's watchdog thread polls its events while
-            # the sharded step's collectives are being captured.
-            with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                new_state, self._aux = pipe.step(self._static, self._depth)
+
+            def step():
+                new_state, self._aux = self._step(self._static, self._depth, self._rgb)
                 _copy_state(self._static, new_state)
-            del new_state
-            # The capture launched nothing: what it counted is one replay's.
-            for (o, a), v in counters.read().items():
-                d = v - before.get((o, a), 0)
-                if d:
-                    setattr(o, a, v - d)
-                    self._per_replay.append((o, a, d))
-                    self.per_replay[counters.name(o, a)] = d
+
+            self.graph = Graph(step, pool)
+            self.per_replay = self.graph.per_replay
+
+    def _step(self, state, depth, rgb):
+        return self.pipe.step(state, depth) if rgb is None else self.pipe.step(state, depth, rgb)
 
     def replay(self) -> None:
-        """One step on the frame in the depth buffer: the graph, and the
-        counts it launches."""
+        """One step on the frame in the depth buffer (and the color
+        buffer): the graph, and the counts it launches."""
         self.graph.replay()
-        for o, a, d in self._per_replay:
-            setattr(o, a, getattr(o, a) + d)
 
-    def run(self, frames) -> NamedTuple:
+    def run(self, frames, rgbs=None) -> NamedTuple:
         """Step every frame of ``frames`` ([n, H, W], or a list of [H, W],
-        on the runner's device) in order; returns the step's aux with
-        each field stacked to [n].  No host sync on the card."""
+        on the runner's device) in order, with ``rgbs`` ([n, H, W, 3])
+        for a runner made with ``rgb``; returns the step's aux with each
+        field stacked to [n].  No host sync on the card."""
         if self.graph is None:
             auxes = []
-            for f in frames:
-                self._state, aux = self.pipe.step(self._state, f)
+            for i, f in enumerate(frames):
+                self._state, aux = self._step(self._state, f, None if rgbs is None else rgbs[i])
                 auxes.append(aux)
-            return _stack_aux(auxes)
+            return stack_aux(auxes)
+        if (rgbs is None) != (self._rgb is None):
+            raise ValueError("CapturedStep.run: color frames go with a runner made with rgb")
         n = len(frames)
         out = type(self._aux)(*[torch.empty((n, *a.shape), dtype=a.dtype, device=self.device)
                                 for a in self._aux])
@@ -146,6 +197,8 @@ class CapturedStep:
                 raise ValueError(f"CapturedStep.run: frame {i} is {tuple(f.shape)} on {f.device}; "
                                  f"the graph takes {self.frame_shape} on {self.device}")
             self._depth.copy_(f)
+            if rgbs is not None:
+                self._rgb.copy_(rgbs[i])
             self.replay()
             for dst, src in zip(out, self._aux):
                 dst[i].copy_(src)
@@ -156,7 +209,7 @@ class CapturedStep:
         replay overwrites the graph's buffers)."""
         if self.graph is None:
             return self._state
-        return _map_state(torch.clone, self._static)
+        return map_state(torch.clone, self._static)
 
     def load(self, state: NamedTuple) -> None:
         """Make ``state`` (same shapes and device) the one the next step

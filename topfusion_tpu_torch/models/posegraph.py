@@ -15,8 +15,10 @@ depends on the data).  What differs is the form, not the semantics:
   the host, so inserting and detecting make no host sync of their own.
 * Loop verification runs the 2 x ``loop_candidates`` x queries ICPs as one
   ``torch.func.vmap`` of ``ops.icp.icp_track``: one set of launches, then
-  one batched ``eigvalsh`` of their Gram matrices for the observability
-  gate (``ops.icp.obs_ratio``, the one host sync of ``detect_loop``).
+  one batched eigensolve of their Gram matrices for the observability
+  gate (``ops.icp.obs_ratio``: on the card one launch of the eig6 kernel,
+  which does not sync), so ``detect_loop`` makes no host sync and can be
+  captured in a CUDA graph.
 * Candidate ranking is a stable ascending sort: ``lax.top_k`` of the
   negated scores takes the lower index on ties, ``torch.topk`` promises no
   order.  ``torch.argmax`` takes the first maximum, as ``jnp.argmax``.
@@ -27,8 +29,8 @@ depends on the data).  What differs is the form, not the semantics:
   changes from run to run: two runs on the card give the same graph to
   the bit.
 * The ``fori_loop``s are Python loops (10 GN x 48 CG steps at the
-  defaults, about 15 operations a step), a host-bound solve that runs only
-  after a loop closure.
+  defaults, about 15 operations a step): eagerly a host-bound solve; on
+  the card ``models/slam.CapturedSlam`` replays it as one CUDA graph.
 """
 
 from __future__ import annotations

@@ -7,11 +7,13 @@ TF32 off, as XLA computed it outside any kernel); the 6x6 damped solve
 stays on the device (``torch.linalg.solve_ex``, no error-check sync), so
 ``icp_track`` makes no host sync.  It returns the final undamped 6x6
 Gram matrix; ``obs_ratio(gram)`` turns it into the observability ratio
-that loop verification gates on.  That takes ``torch.linalg.eigvalsh``,
-which on the card synchronizes to check its result, so only its one
-reader (``models/posegraph.detect_loop``) calls it: the JAX package
-computes the ratio in every call, and XLA drops it unread from every
-jitted step.
+that loop verification gates on, only for its one reader
+(``models/posegraph.detect_loop``): the JAX package computes the ratio
+in every call, and XLA drops it unread from every jitted step.  The
+eigenvalues come from a fixed-sweep Jacobi solver in float64, on the
+card the hand-written kernel ``csrc/eig6.cu`` (``ops/cuda/eig6.py``),
+on the CPU its plain twin here; neither synchronizes the host
+(``torch.linalg.eigvalsh`` does on the card, to check its result).
 
 Gather modes: ``flat`` (the default; here a row gather of the
 concatenated 6-channel map, nearest or bilinear), ``take`` (plain
@@ -52,13 +54,81 @@ class ICPResult(NamedTuple):
     gram: torch.Tensor
 
 
+# Jacobi sweeps over the 15 (p, q) pairs of a 6x6 matrix, as csrc/eig6.cu
+# (whose note gives the count).
+JACOBI_SWEEPS = 8
+_PAIRS = tuple((p, q) for p in range(6) for q in range(p + 1, 6))
+
+
+def _jacobi_rotate(a: torch.Tensor, p: int, q: int) -> None:
+    """One Rutishauser rotation of the symmetric [B, 6, 6] float64 ``a``
+    at (p, q), in place, skipped (by a select) where a_pq is 0: the
+    float64 operations of ``csrc/eig6.cu``'s ``rotate``, one rounding
+    each (every division a tensor by a tensor)."""
+    apq, app, aqq = a[:, p, q], a[:, p, p], a[:, q, q]
+    one = torch.ones_like(apq)
+    theta = (aqq - app) / (apq * 2.0)
+    sgn = torch.where(theta >= 0.0, one, -one)
+    t = sgn / (torch.abs(theta) + torch.sqrt(theta * theta + 1.0))
+    c = one / torch.sqrt(t * t + 1.0)
+    s = t * c
+    tau = (s / (c + 1.0))[:, None]
+    s = s[:, None]
+    h = t * apq
+    skip = (apq == 0.0)[:, None]
+    ap, aq = a[:, :, p], a[:, :, q]
+    new_p = ap - s * (aq + tau * ap)
+    new_q = aq + s * (ap - tau * aq)
+    new_p[:, p], new_p[:, q] = app - h, 0.0
+    new_q[:, q], new_q[:, p] = aqq + h, 0.0
+    new_p = torch.where(skip, ap, new_p)
+    new_q = torch.where(skip, aq, new_q)
+    a[:, :, p] = new_p
+    a[:, p, :] = new_p
+    a[:, :, q] = new_q
+    a[:, q, :] = new_q
+
+
+def jacobi_eigvals6(gram: torch.Tensor) -> torch.Tensor:
+    """Eigenvalues of [..., 6, 6] symmetric matrices (the lower triangle
+    is read, as ``torch.linalg.eigvalsh`` reads it), ascending, float64:
+    ``JACOBI_SWEEPS`` cyclic Jacobi sweeps in float64, the plain twin of
+    the kernel ``csrc/eig6.cu``, bit for bit."""
+    batch = gram.shape[:-2]
+    g = gram.reshape(-1, 6, 6).to(torch.float64)
+    lower = torch.ones(6, 6, dtype=torch.bool, device=g.device).tril()
+    a = torch.where(lower, g, g.transpose(-1, -2))
+    for _ in range(JACOBI_SWEEPS):
+        for p, q in _PAIRS:
+            _jacobi_rotate(a, p, q)
+    eig = torch.diagonal(a, dim1=-2, dim2=-1)
+    return torch.sort(eig, dim=-1).values.reshape(*batch, 6)
+
+
+def ratio_from_eigvals(eig: torch.Tensor) -> torch.Tensor:
+    """``clamp(lambda_min, 0) / clamp(lambda_max, 1e-20)`` of [..., 6]
+    eigenvalues, each rounded to float32 first and divided in float32 (as
+    the ratio of ``torch.linalg.eigvalsh``'s float32 eigenvalues was);
+    NaN propagates."""
+    lo = torch.amin(eig, dim=-1).to(torch.float32)
+    hi = torch.amax(eig, dim=-1).to(torch.float32)
+    return torch.where(lo < 0.0, 0.0, lo) / torch.where(hi < 1e-20, 1e-20, hi)
+
+
+def obs_ratio_plain(gram: torch.Tensor) -> torch.Tensor:
+    """``obs_ratio`` in plain PyTorch: the kernel's twin."""
+    return ratio_from_eigvals(jacobi_eigvals6(gram))
+
+
 def obs_ratio(gram: torch.Tensor) -> torch.Tensor:
-    """Observability of [..., 6, 6] JtJ matrices: lambda_min / lambda_max,
-    ~1e-7 on rank-deficient geometry (a bare wall), ~1e-3 and more on a
-    well-constrained scene.  ``torch.linalg.eigvalsh`` syncs the host on
-    the card."""
-    eig = torch.linalg.eigvalsh(gram)
-    return torch.clamp(eig[..., 0], min=0.0) / torch.clamp(eig[..., 5], min=1e-20)
+    """Observability of [..., 6, 6] float32 JtJ matrices: lambda_min /
+    lambda_max (float32), ~1e-7 on rank-deficient geometry (a bare wall),
+    ~1e-3 and more on a well-constrained scene.  On the card the kernel
+    ``csrc/eig6.cu`` (one launch, no host sync); on the CPU its plain
+    twin."""
+    from .cuda.eig6 import obs_ratio_cuda
+
+    return obs_ratio_cuda(gram)
 
 
 def _any_nonzero(x: torch.Tensor) -> torch.Tensor:

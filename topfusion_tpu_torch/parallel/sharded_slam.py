@@ -9,7 +9,9 @@ Everything that exists is reused:
   * the chunk (steps, keyframe inserts, loop detection, the ring) is
     ``models/slam.SlamSystem._chunk``, inherited: the map is this
     shard's, the pose graph, keyframe buffers and ring are replicated and
-    advance identically on every shard;
+    advance identically on every shard.  It runs eagerly (``_make_runner``
+    gives no runner): the gloo collectives of a world that shares one
+    card cannot be captured in a CUDA graph;
   * the loop's solve goes through ``parallel/dist_ba.optimize_distributed``
     on the same axis: the edges split over the shards, keyframe-sized
     sums.  As in the JAX package this is PCG whatever
@@ -82,6 +84,11 @@ class ShardedSlamSystem(SlamSystem):
     def _to_host(self, t: torch.Tensor) -> np.ndarray:
         """Shard 0's packed result on every shard's host: one broadcast."""
         return self.axis.broadcast(t).cpu().numpy()
+
+    def _make_runner(self):
+        """None: the chunk, the solve and the rebuild run eagerly (gloo's
+        collectives cannot be captured)."""
+        return None
 
     # ---------------------------------------------------------- optimize
     def _optimize_ex(self, graph: PoseGraph, kf_odom_last: torch.Tensor):

@@ -5,12 +5,12 @@
 over the 60-frame synthetic orbit in chunks of 10.  Each
 ``process_chunk`` call is split, by wrapping the system's own methods
 on this instance, into: the chunk's dispatch (the host's time to enqueue
-the steps, keyframe inserts and loop detection), its execution (a sync
-before the fetch), the host fetch (the chunk's one device-to-host
-copy), the loop-closure work (solve and re-integration, when a loop
-closed) and the keyframe bookkeeping on the host (the rest).  Then the
-final render.  The split adds no sync inside a step: the fetch syncs
-anyway.
+the steps, keyframe inserts and loop detection: on the card the replays
+of the captured graphs), its execution (a sync before the fetch), the
+host fetch (the chunk's one device-to-host copy), the loop-closure work
+(solve and re-integration, when a loop closed) and the keyframe
+bookkeeping on the host (the rest).  Then the final render.  The split
+adds no sync inside a step: the fetch syncs anyway.
 
 Usage:  python3 -m topfusion_tpu_torch.tools.profile_app [--device cpu]
 """
@@ -63,9 +63,9 @@ def run(cfg, device, n: int = 60, chunk: int = 10) -> None:
             return out
         return call
 
-    slam._chunk = timed("dispatch", slam._chunk)
+    slam._dispatch_chunk = timed("dispatch", slam._dispatch_chunk)
     slam._fetch = timed("fetch", slam._fetch, fence=True)
-    slam._optimize_ex = timed("loop", slam._optimize_ex)
+    slam._solve = timed("loop", slam._solve)
     slam._reint = timed("loop", slam._reint)
 
     for it, dc in enumerate(chunks):
