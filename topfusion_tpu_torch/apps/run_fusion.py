@@ -21,7 +21,15 @@ The loop is chunked: ``--chunk`` frames per ``process_chunk`` call (about
 a second of frames by default, rounded to the keyframe cadence), one host
 fetch per chunk.  On the card the chunk, the solve and the rebuild replay
 CUDA graphs, captured in the warm-up (``metrics.json``: ``graphs_captured``,
-``capture_s``).  PNGs are written by ``io/png.py`` and GIFs by
+``capture_s``).  From the trace records of the loop (``utils/counters``),
+``metrics.json`` gives ``stage_ms``, the median ms of each stage of each
+graph on the card (by the mark that ends it: the step's ``preproc``,
+``icp``, ``alloc``, ``integrate``, ``maps`` and ``end``, the copy-back;
+and ``total``, a whole replay), and ``chunk_phase_ms``, the median ms of
+each span of a chunk (``slam.chunk``, ``slam.dispatch``, ``slam.fetch``,
+``slam.solve``, ``slam.rebuild``), and ``trace_dropped``, the records
+lost (a full ring, or a chunk whose events found their pool empty),
+which those medians lack.  PNGs are written by ``io/png.py`` and GIFs by
 ``io/gif.py``, so the app needs no image library.
 
 Usage:
@@ -37,6 +45,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
+import statistics
 import sys
 import time
 
@@ -83,6 +92,28 @@ def _poll_key():
     if not r:
         return None
     return (sys.stdin.readline().strip()[:1] or " ").lower()
+
+
+def _trace_summary(t0_ns: int) -> dict:
+    """``stage_ms`` and ``chunk_phase_ms`` of the trace records made since
+    host ns ``t0_ns``, and ``trace_dropped``."""
+    from ..utils import counters
+
+    stages, spans = {}, {}
+    for r in counters.records():
+        if r.t0 < t0_ns:
+            continue
+        if r.kind == "stages":
+            g = stages.setdefault(r.name, {})
+            for (_, a), (m, b) in zip(r.value, r.value[1:]):
+                g.setdefault(m, []).append(b - a)
+            g.setdefault("total", []).append(r.value[-1][1])
+        elif r.kind == "span":
+            spans.setdefault(r.name, []).append((r.t1 - r.t0) / 1e6)
+    med = statistics.median
+    return {"stage_ms": {g: {m: med(v) for m, v in d.items()} for g, d in stages.items()},
+            "chunk_phase_ms": {n: med(v) for n, v in spans.items()},
+            "trace_dropped": counters.dropped()}
 
 
 def main(argv=None) -> int:
@@ -224,7 +255,8 @@ def main(argv=None) -> int:
 
     print(f"running {n_total} frames (chunk={chunk})...")
     metrics.reset_timer()
-    t_start = time.perf_counter()
+    t_start_ns = time.perf_counter_ns()
+    t_start = t_start_ns / 1e9
     t_after_first = None
     frames_after_first = 0
     done = 0
@@ -276,6 +308,7 @@ def main(argv=None) -> int:
     runner = slam._runner
     summary["graphs_captured"] = runner.captures if runner is not None else 0
     summary["capture_s"] = runner.capture_s if runner is not None else 0.0
+    summary.update(_trace_summary(t_start_ns))
     summary["app_fps_total"] = done / max(t_end - t_start, 1e-9)
     if t_after_first is not None and frames_after_first > 0:
         summary["app_fps_steady"] = frames_after_first / max(t_end - t_after_first, 1e-9)

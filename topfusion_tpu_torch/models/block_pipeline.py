@@ -13,7 +13,9 @@ The step issues no host sync (no ``.item()``, no Python branch on a
 device value): the reset is a ``torch.where`` over the map, and the
 rescan computes both visible sets and selects.  With its shapes fixed by
 the configuration, it can be captured whole as a CUDA graph
-(``models/captured.CapturedStep``).
+(``models/captured.CapturedStep``).  It marks the end of each stage for
+the trace (``utils/counters.mark``: ``preproc``, ``icp``, ``alloc``,
+``integrate``, ``maps``), which records only inside a capture.
 
 The step does not modify the state it is given: the reset select writes
 new map tensors, into which integration then writes in place.
@@ -52,6 +54,7 @@ from ..ops.tsdf_block import (
     visible_blocks_incremental,
 )
 from ..ops.tsdf_dense import RaycastResult
+from ..utils import counters
 from ..utils.device_info import entry_device
 from ..utils.numerics import true_div
 
@@ -158,6 +161,7 @@ class BlockPipeline:
 
         raw_m, depth_pyr = preprocess_depth(depth_mm, cfg.preproc)
         cur_pts, cur_nrm = build_maps_pyramid(cam, depth_pyr)
+        counters.mark("preproc")
 
         is_first = state.frame == 0
         icp = icp_track(
@@ -170,6 +174,7 @@ class BlockPipeline:
         do_reset = (~ok) & bool(cfg.reset_on_failure)
         T_int = torch.where(do_reset, torch.eye(4, device=self.device), T_new)
         m = select_block_map(do_reset, state.block_map())
+        counters.mark("icp")
 
         # Discard the failed frame: an all-invalid depth allocates and
         # fuses nothing.
@@ -195,6 +200,7 @@ class BlockPipeline:
             full = tuple(torch.where(rescan, f, a) for f, a in zip(full, aged))
         *vis, vis_overflow = full
         vis = tuple(vis)
+        counters.mark("alloc")
 
         m, n_vis = self.integrate(m, T_int, raw_eff, vis)
 
@@ -202,6 +208,7 @@ class BlockPipeline:
             m = integrate_color_blocks(
                 m, cam, cfg.tsdf, bm, T_int, raw_eff, rgb.to(self.device), vis
             )
+        counters.mark("integrate")
 
         # Model maps for the next frame: forward-projected surface voxels
         # by default, else a sphere march (guided by the depth just fused,
@@ -226,6 +233,7 @@ class BlockPipeline:
             p, n = resize_points_normals(mp[-1], mn[-1])
             mp.append(p)
             mn.append(n)
+        counters.mark("maps")
 
         new_state = BlockState(
             *m,

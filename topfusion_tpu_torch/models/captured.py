@@ -38,6 +38,13 @@ count around itself, keeps what it counted (``per_replay``, by count
 name), takes it back (nothing ran), and adds it on every replay, so each
 count stays the number of launches that ran.
 
+Each capture also carries the stage marks of ``utils/counters`` (a
+``start`` and an ``end`` mark around it, and the ``mark`` calls of what it
+runs, such as ``BlockPipeline.step``'s), unless the records were off when
+it was captured; ``CapturedStep.run`` times each chunk's device work
+between two events outside the graph (``counters.DeviceSpans``, record
+``chunk``).  On the CPU the eager step's marks are host stamps.
+
 ``Graph`` is one capture and its counts; ``CapturedStep`` is a step's.
 ``models/slam.CapturedSlam`` builds the SLAM system's graphs on both,
 with the state helpers ``map_state``, ``copy_into`` and ``stack_aux``.
@@ -45,6 +52,7 @@ with the state helpers ``map_state``, ``copy_into`` and ``stack_aux``.
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -100,18 +108,20 @@ def stack_aux(auxes: list) -> NamedTuple:
 
 class Graph:
     """``fn()`` captured once as a CUDA graph on the current device, with
-    the registered launch counts it adds per replay (see the module
-    docstring).  ``pool`` is a memory pool shared with other graphs
-    (``torch.cuda.graph_pool_handle()``)."""
+    the registered launch counts it adds per replay and its stage marks,
+    named after ``fn`` (see the module docstring).  ``pool`` is a memory
+    pool shared with other graphs (``torch.cuda.graph_pool_handle()``)."""
 
     def __init__(self, fn, pool=None):
         torch.cuda.synchronize()
         before = counters.read()
         self.graph = torch.cuda.CUDAGraph()
+        self.marks = counters.Marks(fn.__name__, cuda=True) if counters.enabled() else None
         # thread_local: NCCL's watchdog thread polls its events while
         # the sharded step's collectives are being captured.
         with torch.cuda.graph(self.graph, pool=pool, capture_error_mode="thread_local"):
-            fn()
+            with counters.recording(self.marks):
+                fn()
         # The capture launched nothing: what it counted is one replay's.
         self.counts = []  # (owner, attribute, count)
         self.per_replay = {}
@@ -123,7 +133,10 @@ class Graph:
                 self.per_replay[counters.name(o, a)] = d
 
     def replay(self) -> None:
+        t0 = time.perf_counter_ns()
         self.graph.replay()
+        if self.marks is not None:
+            self.marks.replayed(t0, time.perf_counter_ns())
         for o, a, d in self.counts:
             setattr(o, a, getattr(o, a) + d)
 
@@ -144,8 +157,10 @@ class CapturedStep:
         self.graph = None
         cam = pipe.cfg.camera
         self.frame_shape = (cam.height, cam.width)
+        self._chunks = counters.DeviceSpans("chunk", self.device)
         if self.device.type != "cuda":
             self._state = state
+            self._marks = counters.Marks("step", cuda=False) if counters.enabled() else None
             return
         with torch.cuda.device(self.device), torch.no_grad():
             self._static = state if adopt else map_state(torch.clone, state)
@@ -180,28 +195,37 @@ class CapturedStep:
         on the runner's device) in order, with ``rgbs`` ([n, H, W, 3])
         for a runner made with ``rgb``; returns the step's aux with each
         field stacked to [n].  No host sync on the card."""
+        counters.flush()
         if self.graph is None:
             auxes = []
-            for i, f in enumerate(frames):
-                self._state, aux = self._step(self._state, f, None if rgbs is None else rgbs[i])
-                auxes.append(aux)
+            with self._chunks.span():
+                for i, f in enumerate(frames):
+                    t0 = time.perf_counter_ns()
+                    with counters.recording(self._marks):
+                        self._state, aux = self._step(self._state, f,
+                                                      None if rgbs is None else rgbs[i])
+                    if self._marks is not None:
+                        self._marks.replayed(t0, time.perf_counter_ns())
+                    auxes.append(aux)
             return stack_aux(auxes)
         if (rgbs is None) != (self._rgb is None):
             raise ValueError("CapturedStep.run: color frames go with a runner made with rgb")
         n = len(frames)
         out = type(self._aux)(*[torch.empty((n, *a.shape), dtype=a.dtype, device=self.device)
                                 for a in self._aux])
-        for i in range(n):
-            f = frames[i]
-            if f.device != self.device or tuple(f.shape) != self.frame_shape:
-                raise ValueError(f"CapturedStep.run: frame {i} is {tuple(f.shape)} on {f.device}; "
-                                 f"the graph takes {self.frame_shape} on {self.device}")
-            self._depth.copy_(f)
-            if rgbs is not None:
-                self._rgb.copy_(rgbs[i])
-            self.replay()
-            for dst, src in zip(out, self._aux):
-                dst[i].copy_(src)
+        with self._chunks.span():
+            for i in range(n):
+                f = frames[i]
+                if f.device != self.device or tuple(f.shape) != self.frame_shape:
+                    raise ValueError(f"CapturedStep.run: frame {i} is {tuple(f.shape)} on "
+                                     f"{f.device}; the graph takes {self.frame_shape} on "
+                                     f"{self.device}")
+                self._depth.copy_(f)
+                if rgbs is not None:
+                    self._rgb.copy_(rgbs[i])
+                self.replay()
+                for dst, src in zip(out, self._aux):
+                    dst[i].copy_(src)
         return out
 
     def state(self) -> NamedTuple:

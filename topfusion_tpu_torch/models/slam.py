@@ -55,6 +55,7 @@ from ..ops.depth import depth_to_meters, downsample_depth, preprocess_depth
 from ..ops.normals import compute_points_normals, resize_points_normals
 from ..ops.splat import splat_model_maps
 from ..ops.tsdf_block import allocate_from_depth, visible_blocks
+from ..utils import counters
 from ..utils.device_info import entry_device
 from ..utils.numerics import norm3
 from .block_pipeline import BlockPipeline, BlockState, shade
@@ -287,8 +288,11 @@ class SlamSystem:
 
     def _fetch(self, packed: torch.Tensor, n: int) -> dict:
         """A chunk of ``n`` frames' packed results on the host, by ONE
-        device-to-host copy."""
-        packed = self._to_host(packed)
+        device-to-host copy; then the trace records of the graphs it
+        waited for."""
+        with counters.span("slam.fetch"):
+            packed = self._to_host(packed)
+        counters.flush()
         k = 16 * n
         aux = packed[k: k + len(_AUX_FIELDS) * n].reshape(n, len(_AUX_FIELDS))
         rest = packed[k + len(_AUX_FIELDS) * n:]
@@ -515,29 +519,42 @@ class SlamSystem:
         ``depths[0]`` is the chunk's keyframe when ``do_kf``.  ``rgb``
         ([N, H, W, 3] uint8) also fuses color (``cfg.tsdf.use_color``).
         Call with chunk-aligned frame indices (the app does).  Returns one
-        info dict per frame."""
+        info dict per frame.
+
+        Trace spans (``utils/counters``), in ``slam.chunk``:
+        ``slam.dispatch`` (until the chunk's work is enqueued: the depth
+        upload, the step replays, the tail), ``slam.fetch`` (the wait for
+        its results), and after a closure ``slam.solve`` (the solve and its
+        fetch) and ``slam.rebuild`` (the rebuild and its correction's
+        fetch); the rest of ``slam.chunk`` is the host's bookkeeping."""
+        with counters.span("slam.chunk"):
+            return self._process_chunk(depths, do_kf, rgb)
+
+    def _process_chunk(self, depths, do_kf: bool, rgb) -> List[dict]:
         cfg = self.cfg
-        depths = _as_tensor(depths).to(self.device)
-        if depths.dtype != torch.uint16:
-            depths = depths.to(torch.uint16)
-        n = depths.shape[0]
-        if self.R > 0 and n > self.R:
-            # Frame g goes to ring slot g % R: a longer chunk would write
-            # one slot twice and break the rebuild's slot invariant.
-            raise ValueError(
-                f"chunk of {n} frames exceeds posegraph.reint_ring="
-                f"{self.R}; use chunks <= the ring length or enlarge it"
-            )
-        if rgb is not None:
-            rgb = _as_tensor(rgb).to(self.device)
+        with counters.span("slam.dispatch"):
+            depths = _as_tensor(depths).to(self.device)
+            if depths.dtype != torch.uint16:
+                depths = depths.to(torch.uint16)
+            n = depths.shape[0]
+            if self.R > 0 and n > self.R:
+                # Frame g goes to ring slot g % R: a longer chunk would write
+                # one slot twice and break the rebuild's slot invariant.
+                raise ValueError(
+                    f"chunk of {n} frames exceeds posegraph.reint_ring="
+                    f"{self.R}; use chunks <= the ring length or enlarge it"
+                )
+            if rgb is not None:
+                rgb = _as_tensor(rgb).to(self.device)
 
-        if self.swap is not None:
-            # Restore host-cached blocks visible from the last pose (lag:
-            # one chunk, as the model maps lag one frame).
-            self._swap_before(self.odom_poses[-1] if self.odom_poses
-                              else np.eye(4, dtype=np.float32))
+            if self.swap is not None:
+                # Restore host-cached blocks visible from the last pose (lag:
+                # one chunk, as the model maps lag one frame).
+                self._swap_before(self.odom_poses[-1] if self.odom_poses
+                                  else np.eye(4, dtype=np.float32))
 
-        got = self._fetch(self._dispatch_chunk(depths, rgb, bool(do_kf)), n)
+            packed = self._dispatch_chunk(depths, rgb, bool(do_kf))
+        got = self._fetch(packed, n)
 
         if self.swap is not None:
             self._swap_after()
@@ -571,19 +588,22 @@ class SlamSystem:
                 infos[0][key] = got[key]
             kidx = len(self.kf_odom_poses) - 1
             kf_odom_last = self.kf_odom_buf[kidx].clone()
-            solved = self._solve(kf_odom_last)
-            kf_opt_last = solved[:16].reshape(4, 4)
-            host = self._to_host(solved)
+            with counters.span("slam.solve"):
+                solved = self._solve(kf_odom_last)
+                kf_opt_last = solved[:16].reshape(4, 4)
+                host = self._to_host(solved)
             kf_opt_last_np, moved = host[:16].reshape(4, 4), float(host[16])
             self.loops_closed += 1
             infos[0]["loop"] = True
             pgc = cfg.posegraph
             if pgc.map_correction == "reintegrate" and moved > pgc.min_map_correction:
-                self.state, corr = self._reint(
-                    self.state, self.graph, self.kf_depth_buf, kf_odom_last,
-                    self.kf_odom_buf, self._ring(), self.frame_idx, len(self.kf_odom_poses),
-                )
-                corr_np = corr.cpu().numpy()
+                with counters.span("slam.rebuild"):
+                    self.state, corr = self._reint(
+                        self.state, self.graph, self.kf_depth_buf, kf_odom_last,
+                        self.kf_odom_buf, self._ring(), self.frame_idx,
+                        len(self.kf_odom_poses),
+                    )
+                    corr_np = corr.cpu().numpy()
                 # This chunk was tracked before the correction: move its
                 # exported odometry into the corrected frame.
                 for j in range(1, n + 1):
@@ -672,7 +692,10 @@ class CapturedSlam:
     results in static buffers allocated outside any capture, so what the
     pool holds is only one graph's temporaries at a time.  ``captures``
     and ``capture_s`` count the graphs captured and the seconds they
-    took."""
+    took.  Each graph's stage marks (``utils/counters``) go by its
+    function's name (``step``, ``tail``, ``solve``, ``wipe``,
+    ``keyframe``, ``ring_frame``, ``reanchor``); ``SlamSystem._fetch``
+    reads the last replay of each after the chunk's fetch."""
 
     LIVE = ("state", "graph", "kf_depth_buf", "kf_odom_buf", "ring_depths", "ring_poses",
             "ring_kf")

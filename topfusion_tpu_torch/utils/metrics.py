@@ -5,12 +5,12 @@ package).
 Replaces the reference's cout-only observability (pose prints at
 tfusion/src/topfu.cpp:246-252, FPS sampling at tfusion/src/core.cpp:202-221,
 ``ScopeTime``/``SampledScopeTime`` at tfusion/include/tfusion/types.hpp:83-104)
-with structured JSONL records and a proper completion-fenced frame timer.
+with structured JSONL records and a proper completion-fenced frame timer;
+the scope timers' counterpart is ``utils/counters.span``.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import time
 from typing import IO, Any, Dict, List, Optional
@@ -73,18 +73,3 @@ class MetricsLogger:
         if self._fh:
             self._fh.close()
             self._fh = None
-
-
-@contextlib.contextmanager
-def scope_timer(name: str, sink: Optional[Dict[str, float]] = None):
-    """RAII-style scope timer (the reference's ScopeTime,
-    tfusion/include/tfusion/types.hpp:83-89)."""
-    t0 = time.perf_counter()
-    try:
-        yield
-    finally:
-        dt = time.perf_counter() - t0
-        if sink is not None:
-            sink[name] = sink.get(name, 0.0) + dt
-        else:
-            print(f"[timer] {name}: {dt*1000:.2f} ms")
