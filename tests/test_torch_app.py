@@ -71,9 +71,13 @@ def sequences(tmp_path_factory):
                           "--noise", "1"],
                          cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE),
     ]
-    for p in procs:
-        out, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err[-2000:]
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-2000:]
+    finally:
+        for p in procs:
+            p.kill()
     return dirs
 
 

@@ -21,6 +21,7 @@ import os
 import pickle
 import shutil
 import socket
+import time
 
 import numpy as np
 import pytest
@@ -110,10 +111,19 @@ def test_initialize_multihost_from_the_environment(tmp_path):
     procs = [ctx.Process(target=env_world_child, args=(r, 2, port, paths[r])) for r in range(2)]
     for p in procs:
         p.start()
-    for p in procs:
-        p.join(timeout=120)
-        if p.is_alive():
+    # A rank that fails leaves the other waiting for it: the wait ends at
+    # the first failure, and kills what still runs.
+    deadline = time.monotonic() + 120
+    try:
+        codes = [p.exitcode for p in procs]
+        while None in codes and not any(codes):
+            assert time.monotonic() < deadline, "the world outlived 120 s"
+            time.sleep(0.05)
+            codes = [p.exitcode for p in procs]
+    finally:
+        for p in procs:
             p.kill()
+            p.join()
     assert [p.exitcode for p in procs] == [0, 0]
     for r, path in enumerate(paths):
         with open(path, "rb") as f:

@@ -60,12 +60,16 @@ def dirs(tmp_path_factory):
     procs = [subprocess.Popen([sys.executable, script, "--out", out["jax", kind], *args],
                               cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE)
              for kind, args in ARGS.items()]
-    for kind, args in ARGS.items():
-        assert make_synthetic_dataset.main(
-            ["--out", out["port", kind], *args, "--device", "cpu"]) == 0
-    for p in procs:
-        _, err = p.communicate(timeout=300)
-        assert p.returncode == 0, err[-2000:]
+    try:
+        for kind, args in ARGS.items():
+            assert make_synthetic_dataset.main(
+                ["--out", out["port", kind], *args, "--device", "cpu"]) == 0
+        for p in procs:
+            _, err = p.communicate(timeout=300)
+            assert p.returncode == 0, err[-2000:]
+    finally:
+        for p in procs:
+            p.kill()
     return out
 
 
